@@ -1,0 +1,74 @@
+"""Kernels build from ``csrc/`` with nvcc into ``admm_deconv_tpu_torch/_build/`` at first use.
+
+Each ``csrc/<name>.cu`` compiles for ``sm_90a`` into a shared library with a
+plain C interface, loaded with :mod:`ctypes`.  The library's file name holds
+a hash of the source and the flags, so an edited source builds anew and an
+unchanged one is loaded as built.  nvcc's ``-Xptxas -v`` report (registers,
+shared memory, spills) is kept beside the library as ``<lib>.log``.
+Nothing builds at import; a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # Round after every operation, as the plain torch version does.
+    "--fmad=false",
+    "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME to build the kernels")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.is_file():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return its path."""
+    lib = library_path(name)
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    lib.with_name(lib.name + ".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``'s library, once per process."""
+    return ctypes.CDLL(str(build(name)))
