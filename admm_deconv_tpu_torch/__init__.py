@@ -7,7 +7,7 @@ imports JAX.  Kernels build at their first launch on a CUDA tensor; CPU
 tensors take the kernels' plain-torch versions.
 """
 
-from admm_deconv_tpu_torch.metrics import peak_snr
+from admm_deconv_tpu_torch.metrics import gmsd, gmsd_loss, peak_snr, ssim, ssim_loss
 from admm_deconv_tpu_torch.ops import prox
 from admm_deconv_tpu_torch.ops.solver import (
     ADMMDiagnostics,
@@ -21,6 +21,10 @@ __all__ = [
     "tv_deconvolve",
     "ADMMState",
     "ADMMDiagnostics",
-    "peak_snr",
     "prox",
+    "peak_snr",
+    "ssim",
+    "ssim_loss",
+    "gmsd",
+    "gmsd_loss",
 ]

@@ -33,49 +33,13 @@
 // Build with --fmad=false: the plain torch version rounds after every
 // operation, and contracting a*b+c into an FMA would move the kernel off it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "prox_math.cuh"
 
 namespace {
 
-enum ProxMode { kAniso = 0, kIso = 1, kHard = 2, kGauss = 3 };
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float sign(float v) {
-  return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-}
-
-// z = prox(v, tau), the formulas of ops/prox.py.
-template <int MODE>
-__device__ __forceinline__ void prox(float vx, float vy, float tau, float& zx,
-                                     float& zy) {
-  if (MODE == kAniso) {
-    zx = sign(vx) * fmaxf(fabsf(vx) - tau, 0.f);
-    zy = sign(vy) * fmaxf(fabsf(vy) - tau, 0.f);
-  } else if (MODE == kIso) {
-    const float r = sqrtf(vx * vx + vy * vy);
-    const float scale = fmaxf(1.f - tau / fmaxf(r, 1e-12f), 0.f);
-    zx = scale * vx;
-    zy = scale * vy;
-  } else if (MODE == kHard) {
-    zx = fabsf(vx) > tau ? vx : 0.f;
-    zy = fabsf(vy) > tau ? vy : 0.f;
-  } else {
-    const float r2 = vx * vx + vy * vy;
-    const float scale = 0.5f - 0.5f * expf(-r2 / (2.f * tau * tau));
-    zx = scale * vx;
-    zy = scale * vy;
-  }
-}
+using namespace admm;
 
 // w = z - u' = 2z - v at one pixel, and u' = v - z.  `xr` is the pixel's
 // row of x, `xa` the row above; `c`/`cm` the column and its left neighbour.

@@ -16,3 +16,8 @@ def peak_snr(x: torch.Tensor, y: torch.Tensor, peak_val: float = 1.0) -> torch.T
     mse = torch.mean(err, dim=tuple(range(1, x.ndim))) if x.ndim > 1 else err
     mse = torch.clamp(mse, min=torch.finfo(x.dtype).tiny)
     return torch.mean(20.0 * torch.log10(peak_val / torch.sqrt(mse)))
+
+
+def mse(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean squared error over every element (the trainer's mse loss)."""
+    return torch.mean((x - y) ** 2)

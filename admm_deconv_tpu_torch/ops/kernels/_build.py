@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles for ``sm_90a`` into a shared library with a
 plain C interface, loaded with :mod:`ctypes`.  The library's file name holds
-a hash of the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as built.  nvcc's ``-Xptxas -v`` report (registers,
-shared memory, spills) is kept beside the library as ``<lib>.log``.
-Nothing builds at import; a failed build raises.
+a hash of the source, of every shared header ``csrc/*.cuh`` and of the
+flags, so an edited source or header builds anew and an unchanged one is
+loaded as built.  nvcc's ``-Xptxas -v`` report (registers, shared memory,
+spills) is kept beside the library as ``<lib>.log``.  Nothing builds at
+import; a failed build raises.
 """
 
 from __future__ import annotations
@@ -42,9 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to, keyed by source, headers and flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -55,7 +58,8 @@ def build(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+           str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -1,4 +1,5 @@
-"""Fused whole-stencil ADMM step: D, prox, dual ascent and D^T in one pass.
+"""Fused whole-stencil ADMM step: D, prox, dual ascent and D^T in one pass,
+and its backward.
 
 Counterpart of ``admm_deconv_tpu/ops/pallas/stencil_kernels.py``
 (``fused_admm_stencil`` and ``fused_admm_stencil_mixed``).  Per plane,
@@ -8,12 +9,14 @@ Counterpart of ``admm_deconv_tpu/ops/pallas/stencil_kernels.py``
 returning ``(q, ux', uy')``.  ``z`` never reaches device memory: with plain
 ADMM the solver's loop state is ``(q, u)`` alone.
 
-On a CUDA tensor each wrapper launches the hand-written kernel
-``csrc/stencil_fwd.cu`` (built at first use, see ``_build.py``); on a CPU
-tensor it runs :func:`_stencil_plain`, the same arithmetic in plain torch.
-Nothing falls back: a build or launch failure raises.  The kernel has no
-backward yet, so a CUDA call that needs gradients raises
-``NotImplementedError``; the plain version is differentiable by autograd.
+Both wrappers go through one ``torch.autograd.Function`` (the counterpart
+of the JAX package's ``jax.custom_vjp``).  On a CUDA tensor its forward
+launches the hand-written kernel ``csrc/stencil_fwd.cu`` and its backward
+``csrc/stencil_bwd.cu`` (built at first use, see ``_build.py``); on a CPU
+tensor they run :func:`_stencil_plain` and :func:`_bwd_plain`, the same
+arithmetic in plain torch.  So the CPU path computes the same analytic
+gradient as the card and as JAX's custom VJP.  Nothing falls back: a build
+or launch failure raises.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
@@ -25,11 +28,14 @@ import functools
 
 import torch
 
-from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES, prox_apply
+from admm_deconv_tpu_torch.ops.diff import grad2d, grad2d_adjoint
+from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES, prox_apply, prox_vjp
 
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 _DUAL_DTYPES = (torch.float32, torch.bfloat16)
 _INT32_MAX = 2**31 - 1
+# Threads per block of both kernels; a block covers one row segment.
+_THREADS = 256
 
 
 def _stencil_plain(x, ux, uy, tau, mode):
@@ -54,6 +60,32 @@ def _stencil_plain(x, ux, uy, tau, mode):
     return q.to(out), ux_new.to(out), uy_new.to(out)
 
 
+def _bwd_plain(x, ux, uy, tau, gq, gux, guy, mode):
+    """Plain-torch twin of the backward kernel (JAX's ``_bwd_jnp``).
+
+    With residuals ``(x, ux, uy, tau)`` and cotangents ``(gq, gux, guy)``:
+    ``wb = D gq``, ``zb = 2 wb - gu``, ``vb = gu - wb + J_prox^T zb``,
+    ``xbar = D^T vb``, ``ubar = vb`` and ``taub`` the per-plane sum of
+    ``(dz/dtau) zb``.  Narrow (bf16) duals and cotangents are cast up and
+    everything is computed in ``x``'s dtype; ``ubar`` is cast back to the
+    duals' dtype.  Returns ``(xbar, uxbar, uybar, taub)`` with ``taub`` of
+    shape ``(N,)`` in ``x``'s dtype.
+    """
+    f = x.dtype
+    t = tau if tau.ndim == 0 else tau[:, None, None]
+    dxx, dxy = grad2d(x)
+    vx, vy = dxx + ux.to(f), dxy + uy.to(f)
+    wbx, wby = grad2d(gq.to(f))
+    gux, guy = gux.to(f), guy.to(f)
+    zbx = 2.0 * wbx - gux
+    zby = 2.0 * wby - guy
+    pvx, pvy, taub = prox_vjp(mode, vx, vy, t, zbx, zby)
+    vbx = gux - wbx + pvx
+    vby = guy - wby + pvy
+    xbar = grad2d_adjoint(vbx, vby)
+    return xbar, vbx.to(ux.dtype), vby.to(ux.dtype), torch.sum(taub, dim=(-2, -1))
+
+
 def _tau_plane_vector(tau, n: int, dtype, device) -> torch.Tensor | None:
     """Canonicalize tau to 0-d or ``(N,)``; None if not representable."""
     tau = torch.as_tensor(tau, dtype=dtype, device=device)
@@ -67,13 +99,12 @@ def _tau_plane_vector(tau, n: int, dtype, device) -> torch.Tensor | None:
     return None
 
 
-@functools.cache
-def _kernel_fn():
+def _load_kernel(name: str, entry: str, n_ptrs: int):
     from admm_deconv_tpu_torch.ops.kernels import _build
 
-    lib = _build.load("stencil_fwd")
-    fn = lib.admm_stencil_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
+    lib = _build.load(name)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -83,17 +114,20 @@ def _kernel_fn():
     return fn, lib.admm_cuda_error_string
 
 
-def _stencil_cuda(x, ux, uy, tau, mode):
-    """Check the operands and launch ``csrc/stencil_fwd.cu`` on the current
-    stream.  Outputs are fresh buffers (never aliased onto ``ux``/``uy``)."""
+@functools.cache
+def _kernel_fn():
+    return _load_kernel("stencil_fwd", "admm_stencil_fwd", 7)
+
+
+@functools.cache
+def _bwd_kernel_fn():
+    return _load_kernel("stencil_bwd", "admm_stencil_bwd", 11)
+
+
+def _check_cuda_operands(x, ux):
+    """What both kernels take: fp32 x, fp32 or bf16 duals, a grid that fits."""
     if x.device.type != "cuda":
         raise ValueError(f"no stencil kernel for device {x.device}")
-    if any(t.requires_grad for t in (x, ux, uy, tau)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the CUDA stencil kernel has no backward yet (the backward stencil "
-            "kernel, ROADMAP Queue 2 item 2); run the solve under "
-            "torch.no_grad() or on CPU tensors"
-        )
     if x.dtype != torch.float32:
         raise ValueError(f"the CUDA stencil takes float32 x, got {x.dtype}")
     if ux.dtype not in _DUAL_DTYPES:
@@ -103,24 +137,126 @@ def _stencil_cuda(x, ux, uy, tau, mode):
         raise ValueError(f"empty plane stack {tuple(x.shape)}")
     if n * h > _INT32_MAX or w > _INT32_MAX:
         raise ValueError(f"plane stack {tuple(x.shape)} too large for the kernel grid")
+
+
+def _launch(kernel_fn, name, x, args, n, h, w, mode, bf16):
+    fn, err_str = kernel_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*args, n, h, w, _MODE_ID[mode], int(bf16), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {err_str(err).decode()} (cudaError {err})")
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stencil_cuda(x, ux, uy, tau, mode):
+    """Check the operands and launch ``csrc/stencil_fwd.cu`` on the current
+    stream.  Outputs are fresh buffers (never aliased onto ``ux``/``uy``)."""
+    _check_cuda_operands(x, ux)
+    n, h, w = x.shape
     x, ux, uy = x.contiguous(), ux.contiguous(), uy.contiguous()
     tau_n = tau.to(torch.float32).expand(n).contiguous()
     q = torch.empty_like(ux)
     ux_new = torch.empty_like(ux)
     uy_new = torch.empty_like(ux)
-    fn, err_str = _kernel_fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), ux.data_ptr(), uy.data_ptr(), tau_n.data_ptr(),
-            q.data_ptr(), ux_new.data_ptr(), uy_new.data_ptr(),
-            n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"stencil_fwd launch failed: {err_str(err).decode()} (cudaError {err})"
-        )
+    _launch(
+        _kernel_fn, "stencil_fwd", x,
+        [_ptr(a) for a in (x, ux, uy, tau_n, q, ux_new, uy_new)],
+        n, h, w, mode, ux.dtype == torch.bfloat16,
+    )
     return q, ux_new, uy_new
+
+
+def _stencil_bwd_cuda(x, ux, uy, tau, gq, gux, guy, mode, need_x=True, need_u=True,
+                      need_tau=True):
+    """Check the operands and launch ``csrc/stencil_bwd.cu`` on the current
+    stream, counted in ``fused_admm_stencil_bwd.launches``.  Outputs nobody
+    needs come back as None, are not allocated and not written (the kernel
+    skips a null pointer).  ``taub`` comes back as the ``(N,)`` sum of the
+    kernel's per-block partials, in a fixed order."""
+    _check_cuda_operands(x, ux)
+    n, h, w = x.shape
+    if not (gq.dtype == gux.dtype == guy.dtype == ux.dtype):
+        raise ValueError(
+            f"cotangent dtypes {gq.dtype}/{gux.dtype}/{guy.dtype} differ from the "
+            f"duals' {ux.dtype}"
+        )
+    x, ux, uy, gq, gux, guy = (a.contiguous() for a in (x, ux, uy, gq, gux, guy))
+    tau_n = tau.to(torch.float32).expand(n).contiguous()
+    xbar = torch.empty_like(x) if need_x else None
+    uxbar = torch.empty_like(ux) if need_u else None
+    uybar = torch.empty_like(ux) if need_u else None
+    col_blocks = (w + _THREADS - 1) // _THREADS
+    partials = (
+        torch.empty((n, h * col_blocks), dtype=torch.float32, device=x.device)
+        if need_tau else None
+    )
+    _launch(
+        _bwd_kernel_fn, "stencil_bwd", x,
+        [_ptr(a) for a in (x, ux, uy, tau_n, gq, gux, guy, xbar, uxbar, uybar, partials)],
+        n, h, w, mode, ux.dtype == torch.bfloat16,
+    )
+    fused_admm_stencil_bwd.launches += 1
+    taub = None if partials is None else torch.sum(partials, dim=1)
+    return xbar, uxbar, uybar, taub
+
+
+def fused_admm_stencil_bwd(x, ux, uy, tau, gq, gux, guy, mode):
+    """Backward of the fused stencil (the counterpart of JAX's ``_bwd_pallas``).
+
+    ``tau`` is 0-d or ``(N,)``.  On a CUDA tensor it launches
+    ``csrc/stencil_bwd.cu``; on a CPU tensor it runs :func:`_bwd_plain`.
+    Returns ``(xbar, uxbar, uybar, taub)`` on both: ``xbar`` fp32, the dual
+    cotangents in the duals' dtype, ``taub`` the per-plane ``(N,)`` sums.
+    """
+    if x.device.type == "cpu":
+        return _bwd_plain(x, ux, uy, tau, gq, gux, guy, mode)
+    return _stencil_bwd_cuda(x, ux, uy, tau, gq, gux, guy, mode)
+
+
+fused_admm_stencil_bwd.launches = 0
+
+
+class _FusedStencil(torch.autograd.Function):
+    """The forward kernel (its plain version on a CPU tensor) with the
+    analytic backward of :func:`fused_admm_stencil_bwd`.  Saves the
+    residuals ``(x, ux, uy, tau)``; ``v`` is recomputed in the backward.  On
+    a CUDA tensor the backward kernel skips the gradients nobody asked for."""
+
+    @staticmethod
+    def forward(ctx, x, ux, uy, tau, mode, wrapper):
+        ctx.mode = mode
+        ctx.save_for_backward(x, ux, uy, tau)
+        if x.device.type == "cpu":
+            return _stencil_plain(x, ux, uy, tau, mode)
+        out = _stencil_cuda(x, ux, uy, tau, mode)
+        wrapper.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, gq, gux, guy):
+        x, ux, uy, tau = ctx.saved_tensors
+        need_x, need_ux, need_uy, need_tau = ctx.needs_input_grad[:4]
+        if x.device.type == "cpu":
+            xbar, uxbar, uybar, taub = _bwd_plain(x, ux, uy, tau, gq, gux, guy, ctx.mode)
+        else:
+            xbar, uxbar, uybar, taub = _stencil_bwd_cuda(
+                x, ux, uy, tau, gq, gux, guy, ctx.mode,
+                need_x=need_x, need_u=need_ux or need_uy, need_tau=need_tau,
+            )
+        if need_tau:
+            taub = (taub.sum() if tau.ndim == 0 else taub).to(tau.dtype)
+        return (
+            xbar if need_x else None,
+            uxbar if need_ux else None,
+            uybar if need_uy else None,
+            taub if need_tau else None,
+            None,
+            None,
+        )
 
 
 def _check(x, ux, uy, tau, mode, tau_dtype):
@@ -165,19 +301,16 @@ def fused_admm_stencil(
         q = grad2d_adjoint(zx - ux2, zy - uy2)
         return q, ux2, uy2
 
-    ``tau`` is a scalar or a per-plane ``(N,)`` / ``(N,1,1)`` vector.  Unlike
-    the TPU kernel there is no row-block constraint on H or W.
+    ``tau`` is a scalar or a per-plane ``(N,)`` / ``(N,1,1)`` vector.
+    Differentiable in ``(x, ux, uy, tau)`` through the fused backward.
+    Unlike the TPU kernel there is no row-block constraint on H or W.
     ``interpret`` is accepted for call compatibility and has no effect:
     a CPU tensor always takes the plain version.
 
     Returns ``(q, ux_new, uy_new)``.
     """
     tau_c = _check(x, ux, uy, tau, mode, x.dtype)
-    if x.device.type == "cpu":
-        return _stencil_plain(x, ux, uy, tau_c, mode)
-    out = _stencil_cuda(x, ux, uy, tau_c, mode)
-    fused_admm_stencil.launches += 1
-    return out
+    return _FusedStencil.apply(x, ux, uy, tau_c, mode, fused_admm_stencil)
 
 
 fused_admm_stencil.launches = 0
@@ -196,18 +329,16 @@ def fused_admm_stencil_mixed(
 
     ``x`` stays fp32; the carried duals ``ux``/``uy`` — and the emitted
     ``(q, ux', uy')`` — live in a narrower storage dtype (bfloat16).  All
-    arithmetic runs in fp32; only the device-memory state narrows.
+    arithmetic runs in fp32; only the device-memory state narrows.  The
+    backward takes bf16 cotangents, computes in fp32 and returns the dual
+    cotangents in bf16 (``xbar`` stays fp32).
     ``impl`` ("dma" | "blocked") named the TPU kernel's two forms; both map
     to the one CUDA kernel, and ``interpret`` has no effect.
     """
     if impl not in ("dma", "blocked"):
         raise ValueError(f"impl must be dma|blocked, got {impl!r}")
     tau_c = _check(x, ux, uy, tau, mode, torch.float32)
-    if x.device.type == "cpu":
-        return _stencil_plain(x, ux, uy, tau_c, mode)
-    out = _stencil_cuda(x, ux, uy, tau_c, mode)
-    fused_admm_stencil_mixed.launches += 1
-    return out
+    return _FusedStencil.apply(x, ux, uy, tau_c, mode, fused_admm_stencil_mixed)
 
 
 fused_admm_stencil_mixed.launches = 0

@@ -15,7 +15,8 @@ and threshold ``tau = lam / rho``.  Each iteration is
 The default loop carries ``(q, u)`` only (the *q-carry* form): neither ``z``
 nor ``x`` is stored between iterations, and the output image is one extra
 spectral solve after the loop.  Its stencil pass is the hand-written CUDA
-kernel on a CUDA tensor (``ops/kernels/stencil_kernels.py``).  The
+kernel on a CUDA tensor (``ops/kernels/stencil_kernels.py``), and its
+gradient the hand-written backward kernel.  The
 reference-shaped loop over the full state ``(x, z, u)`` serves diagnostics,
 warm-start state requests and over-relaxation with state output.
 
@@ -220,9 +221,11 @@ def tv_deconvolve(
         alpha=1, a named prox, prox_impl "auto"/"pallas", no diagnostics or
         state request.
 
-    Differentiable by autograd on CPU tensors.  On a CUDA tensor the kernel
-    path has no backward yet and raises ``NotImplementedError`` when a
-    gradient is required; ``prox_impl="xla"`` stays differentiable there.
+    Differentiable in ``y``, ``psf``, ``lam`` and ``rho`` (scalar or
+    per-image) on either device: the kernel path's stencil carries an
+    analytic backward (the backward kernel on a CUDA tensor), the plain
+    path goes through autograd.  With ``remat`` each iteration's forward,
+    stencil kernel included, runs again in the backward pass.
 
     Returns:
       Restored image(s) with the input's shape; with flags set, a tuple

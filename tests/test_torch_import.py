@@ -55,6 +55,41 @@ def test_port_solves_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_port_trains_with_jax_blocked():
+    """Every module of the training slice imports without jax, and one
+    flagship train step (gmsd + AdaBelief) runs at 96^2."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "import admm_deconv_tpu_torch.layers, admm_deconv_tpu_torch.models\n"
+        "import admm_deconv_tpu_torch.metrics, admm_deconv_tpu_torch.optim\n"
+        "import admm_deconv_tpu_torch.train, admm_deconv_tpu_torch.utils.params_io\n"
+        "from admm_deconv_tpu_torch.models import build_model\n"
+        "from admm_deconv_tpu_torch.ops.kernels import stencil_kernels as sk\n"
+        "from admm_deconv_tpu_torch.train import TrainConfig, Trainer\n"
+        "model = build_model('admm_denoiser')\n"
+        "model.DenoiserBank_0.iters = 2\n"
+        "trainer = Trainer(model, TrainConfig(lr_rate=1e-4, checkpointing=False))\n"
+        "state = trainer.init_state(torch.Generator().manual_seed(0))\n"
+        "g = torch.Generator().manual_seed(1)\n"
+        "x, y = torch.rand(1, 96, 96, 3, generator=g), torch.rand(1, 96, 96, 3, generator=g)\n"
+        "before = [p.detach().clone() for p in model.parameters()]\n"
+        "acc = trainer.train_step(state, x, y, trainer._zero_acc())\n"
+        "assert state.step == 1 and bool(torch.isfinite(acc['loss']))\n"
+        "assert all(not torch.equal(a, b) for a, b in zip(before, model.parameters()))\n"
+        "mods = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "        or m == 'admm_deconv_tpu' or m.startswith('admm_deconv_tpu.')]\n"
+        "assert mods == ['jax'], mods\n"
+        "assert sk._kernel_fn.cache_info().currsize == 0, 'kernel built on CPU'\n"
+        "assert sk._bwd_kernel_fn.cache_info().currsize == 0, 'kernel built on CPU'\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_refuses_without_cuda():
     proc = _run(["chip_smoke.py"])
     assert proc.returncode != 0
