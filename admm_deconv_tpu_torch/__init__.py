@@ -9,16 +9,28 @@ tensors take the kernels' plain-torch versions.
 
 from admm_deconv_tpu_torch.metrics import gmsd, gmsd_loss, peak_snr, ssim, ssim_loss
 from admm_deconv_tpu_torch.ops import prox
+from admm_deconv_tpu_torch.ops.composite import (
+    composite_tv_deconvolve,
+    composite_tv_deconvolve_adaptive,
+)
 from admm_deconv_tpu_torch.ops.solver import (
     ADMMDiagnostics,
     ADMMState,
+    solve_auto,
     tv_deconvolve,
+    tv_deconvolve_adaptive,
+    tv_objective,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "solve_auto",
     "tv_deconvolve",
+    "tv_deconvolve_adaptive",
+    "tv_objective",
+    "composite_tv_deconvolve",
+    "composite_tv_deconvolve_adaptive",
     "ADMMState",
     "ADMMDiagnostics",
     "prox",

@@ -1,4 +1,5 @@
-// Prox math and element access shared by the stencil kernels.
+// Prox math, element access and the forward stencil's per-pixel TV split,
+// shared by the kernels.
 //
 // The device twin of ops/kernels/prox_math.py: `prox<MODE>` is z = prox(v,
 // tau) and `prox_vjp<MODE>` its analytic VJP, with the masks and the 1e-12
@@ -88,6 +89,27 @@ __device__ __forceinline__ void prox_vjp(float vx, float vy, float tau,
     vby = scale * zby + 2.f * ds_dr2 * dot * vy;
     taub = -(0.5f * e * r2 / (tau * tau * tau)) * dot;
   }
+}
+
+// The forward stencil's TV split at one pixel: v = D x + u, z = prox(v,
+// tau), u' = v - z and w = z - u' (= 2z - v).  `xr` is the pixel's row of
+// x, `xa` the row above; `c`/`cm` the column and its left neighbour.
+template <int MODE, typename T>
+__device__ __forceinline__ void tv_split_pixel(const float* xr,
+                                               const float* xa, const T* uxr,
+                                               const T* uyr, int c, int cm,
+                                               float tau, float& wx,
+                                               float& wy, float& uxn,
+                                               float& uyn) {
+  const float xc = xr[c];
+  const float vx = (xc - xr[cm]) + load_f32(uxr + c);
+  const float vy = (xc - xa[c]) + load_f32(uyr + c);
+  float zx, zy;
+  prox<MODE>(vx, vy, tau, zx, zy);
+  uxn = vx - zx;
+  uyn = vy - zy;
+  wx = zx - uxn;
+  wy = zy - uyn;
 }
 
 }  // namespace admm

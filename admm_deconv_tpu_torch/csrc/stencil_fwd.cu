@@ -41,24 +41,6 @@ namespace {
 
 using namespace admm;
 
-// w = z - u' = 2z - v at one pixel, and u' = v - z.  `xr` is the pixel's
-// row of x, `xa` the row above; `c`/`cm` the column and its left neighbour.
-template <int MODE, typename T>
-__device__ __forceinline__ void pixel(const float* xr, const float* xa,
-                                      const T* uxr, const T* uyr, int c,
-                                      int cm, float tau, float& wx, float& wy,
-                                      float& uxn, float& uyn) {
-  const float xc = xr[c];
-  const float vx = (xc - xr[cm]) + load_f32(uxr + c);
-  const float vy = (xc - xa[c]) + load_f32(uyr + c);
-  float zx, zy;
-  prox<MODE>(vx, vy, tau, zx, zy);
-  uxn = vx - zx;
-  uyn = vy - zy;
-  wx = zx - uxn;
-  wy = zy - uyn;
-}
-
 template <int MODE, typename T>
 __global__ void stencil_fwd_kernel(const float* __restrict__ x,
                                    const T* __restrict__ ux,
@@ -82,14 +64,14 @@ __global__ void stencil_fwd_kernel(const float* __restrict__ x,
   const float t = tau[plane];
 
   float wx0, wy0, uxn0, uyn0;  // at (r, c): the pixel this thread writes
-  pixel<MODE>(x + off_r, x + off_a, ux + off_r, uy + off_r, c, cl, t, wx0,
-              wy0, uxn0, uyn0);
+  tv_split_pixel<MODE>(x + off_r, x + off_a, ux + off_r, uy + off_r, c, cl, t,
+                       wx0, wy0, uxn0, uyn0);
   float wx1, wy1, uxn1, uyn1;  // at (r, c+1): only wx is used
-  pixel<MODE>(x + off_r, x + off_a, ux + off_r, uy + off_r, cr, c, t, wx1,
-              wy1, uxn1, uyn1);
+  tv_split_pixel<MODE>(x + off_r, x + off_a, ux + off_r, uy + off_r, cr, c, t,
+                       wx1, wy1, uxn1, uyn1);
   float wx2, wy2, uxn2, uyn2;  // at (r+1, c): only wy is used
-  pixel<MODE>(x + off_b, x + off_r, ux + off_b, uy + off_b, c, cl, t, wx2,
-              wy2, uxn2, uyn2);
+  tv_split_pixel<MODE>(x + off_b, x + off_r, ux + off_b, uy + off_b, c, cl, t,
+                       wx2, wy2, uxn2, uyn2);
 
   const int64_t i = off_r + c;
   store(q + i, (wx0 - wx1) + (wy0 - wy2));

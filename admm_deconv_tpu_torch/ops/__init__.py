@@ -1,1 +1,29 @@
-"""Solver core: FFT precompute, difference stencils, prox library, ADMM loop."""
+"""Solver core: FFT precompute, difference stencils, prox library, ADMM loops."""
+
+from admm_deconv_tpu_torch.ops import prox
+from admm_deconv_tpu_torch.ops.composite import (
+    composite_tv_deconvolve,
+    composite_tv_deconvolve_adaptive,
+)
+from admm_deconv_tpu_torch.ops.diff import grad2d, grad2d_adjoint
+from admm_deconv_tpu_torch.ops.fft import laplacian_spectrum, psf_to_otf
+from admm_deconv_tpu_torch.ops.solver import (
+    solve_auto,
+    tv_deconvolve,
+    tv_deconvolve_adaptive,
+    tv_objective,
+)
+
+__all__ = [
+    "psf_to_otf",
+    "laplacian_spectrum",
+    "grad2d",
+    "grad2d_adjoint",
+    "prox",
+    "solve_auto",
+    "tv_deconvolve",
+    "tv_deconvolve_adaptive",
+    "tv_objective",
+    "composite_tv_deconvolve",
+    "composite_tv_deconvolve_adaptive",
+]

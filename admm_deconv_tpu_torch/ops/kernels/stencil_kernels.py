@@ -18,6 +18,10 @@ arithmetic in plain torch.  So the CPU path computes the same analytic
 gradient as the card and as JAX's custom VJP.  Nothing falls back: a build
 or launch failure raises.
 
+:func:`fused_admm_stencil_composite` adds the composite prior's identity
+split to the same pass (``csrc/stencil_composite.cu`` on a CUDA tensor,
+:func:`_composite_plain` on a CPU tensor); it is forward-only, as in JAX.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
@@ -99,15 +103,18 @@ def _tau_plane_vector(tau, n: int, dtype, device) -> torch.Tensor | None:
     return None
 
 
-def _load_kernel(name: str, entry: str, n_ptrs: int):
+# The stencil kernels' arguments after their pointers: n, h, w, mode, bf16.
+_STENCIL_ARGS = (ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int)
+
+
+def _load_kernel(name: str, entry: str, n_ptrs: int, scalars=_STENCIL_ARGS):
+    """Build and load ``csrc/<name>.cu``; its C entry takes ``n_ptrs``
+    pointers, then ``scalars``, then the stream, and returns a cudaError."""
     from admm_deconv_tpu_torch.ops.kernels import _build
 
     lib = _build.load(name)
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [*scalars, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.admm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.admm_cuda_error_string.restype = ctypes.c_char_p
@@ -122,6 +129,14 @@ def _kernel_fn():
 @functools.cache
 def _bwd_kernel_fn():
     return _load_kernel("stencil_bwd", "admm_stencil_bwd", 11)
+
+
+@functools.cache
+def _composite_kernel_fn():
+    return _load_kernel(
+        "stencil_composite", "admm_stencil_composite", 9,
+        (*_STENCIL_ARGS, ctypes.c_int, ctypes.c_float, ctypes.c_float),
+    )
 
 
 def _check_cuda_operands(x, ux):
@@ -139,11 +154,12 @@ def _check_cuda_operands(x, ux):
         raise ValueError(f"plane stack {tuple(x.shape)} too large for the kernel grid")
 
 
-def _launch(kernel_fn, name, x, args, n, h, w, mode, bf16):
+def _launch(kernel_fn, name, device, *args):
+    """Launch a kernel on ``device``'s current stream; raise on its error."""
     fn, err_str = kernel_fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*args, n, h, w, _MODE_ID[mode], int(bf16), stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {err_str(err).decode()} (cudaError {err})")
 
@@ -163,9 +179,9 @@ def _stencil_cuda(x, ux, uy, tau, mode):
     ux_new = torch.empty_like(ux)
     uy_new = torch.empty_like(ux)
     _launch(
-        _kernel_fn, "stencil_fwd", x,
-        [_ptr(a) for a in (x, ux, uy, tau_n, q, ux_new, uy_new)],
-        n, h, w, mode, ux.dtype == torch.bfloat16,
+        _kernel_fn, "stencil_fwd", x.device,
+        *(_ptr(a) for a in (x, ux, uy, tau_n, q, ux_new, uy_new)),
+        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16),
     )
     return q, ux_new, uy_new
 
@@ -195,9 +211,9 @@ def _stencil_bwd_cuda(x, ux, uy, tau, gq, gux, guy, mode, need_x=True, need_u=Tr
         if need_tau else None
     )
     _launch(
-        _bwd_kernel_fn, "stencil_bwd", x,
-        [_ptr(a) for a in (x, ux, uy, tau_n, gq, gux, guy, xbar, uxbar, uybar, partials)],
-        n, h, w, mode, ux.dtype == torch.bfloat16,
+        _bwd_kernel_fn, "stencil_bwd", x.device,
+        *(_ptr(a) for a in (x, ux, uy, tau_n, gq, gux, guy, xbar, uxbar, uybar, partials)),
+        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16),
     )
     fused_admm_stencil_bwd.launches += 1
     taub = None if partials is None else torch.sum(partials, dim=1)
@@ -342,3 +358,105 @@ def fused_admm_stencil_mixed(
 
 
 fused_admm_stencil_mixed.launches = 0
+
+
+def _composite_plain(x, ux, uy, u2, table, x_bounds, mode):
+    """Plain-torch twin of the composite kernel.  ``table`` is the ``(N, 3)``
+    per-plane ``(tau_tv, tau_l1, ratio)``.
+
+    Computes in ``x``'s dtype (the duals are cast up) and returns
+    ``(q, ux', uy', u2')`` in the duals' dtype.
+    """
+    f = x.dtype
+    tau_l1, ratio = table[:, 1, None, None], table[:, 2, None, None]
+    q1, ux_new, uy_new = _stencil_plain(x, ux.to(f), uy.to(f), table[:, 0], mode)
+    v2 = x + u2.to(f)
+    z2 = torch.sign(v2) * torch.clamp(torch.abs(v2) - tau_l1, min=0.0)
+    if x_bounds is not None:
+        z2 = torch.clamp(z2, x_bounds[0], x_bounds[1])
+    u2_new = v2 - z2
+    q = q1 + ratio * (z2 - u2_new)
+    out = ux.dtype
+    return q.to(out), ux_new.to(out), uy_new.to(out), u2_new.to(out)
+
+
+def _composite_cuda(x, ux, uy, u2, table, x_bounds, mode):
+    """Check the operands and launch ``csrc/stencil_composite.cu`` on the
+    current stream.  Outputs are fresh buffers."""
+    _check_cuda_operands(x, ux)
+    n, h, w = x.shape
+    x, ux, uy, u2 = (a.contiguous() for a in (x, ux, uy, u2))
+    table = table.contiguous()
+    outs = [torch.empty_like(ux) for _ in range(4)]
+    lo, hi = (0.0, 0.0) if x_bounds is None else (float(x_bounds[0]), float(x_bounds[1]))
+    _launch(
+        _composite_kernel_fn, "stencil_composite", x.device,
+        *(_ptr(a) for a in (x, ux, uy, u2, table, *outs)),
+        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16),
+        int(x_bounds is not None), lo, hi,
+    )
+    return tuple(outs)
+
+
+def fused_admm_stencil_composite(
+    x: torch.Tensor,
+    ux: torch.Tensor,
+    uy: torch.Tensor,
+    u2: torch.Tensor,
+    tau_tv,
+    tau_l1,
+    ratio,
+    x_bounds: tuple[float, float] | None = None,
+    mode: str = "aniso",
+    interpret: bool | None = None,
+):
+    """One-pass composite step: D -> TV prox -> dual, the identity split's
+    ``clip(soft(.))`` prox -> dual, and the combined rhs
+    ``q = D^T(z1 - u1') + ratio * (z2 - u2')`` — the composite solver's
+    whole non-FFT section (``ops/composite.py``) in one pass.
+
+    ``x`` is float32 ``(N, H, W)``; ``ux``/``uy``/``u2`` share one dtype
+    (float32 or bfloat16), in which the outputs come back.  ``tau_tv`` /
+    ``tau_l1`` / ``ratio`` are scalars or per-plane ``(N,)``.  Unlike the TPU
+    kernel there is no row-block constraint on H or W, and ``interpret`` has
+    no effect.  Forward-only, as in JAX: on a CUDA tensor a call that
+    autograd would record raises rather than return a wrong gradient (on a
+    CPU tensor the plain twin is differentiated by autograd).
+
+    Returns ``(q, ux', uy', u2')``.
+    """
+    if x.ndim != 3:
+        raise ValueError(f"expected (N, H, W), got {tuple(x.shape)}")
+    if mode not in MODES:
+        raise ValueError(f"unknown prox mode {mode!r}; expected one of {MODES}")
+    if ux.dtype != uy.dtype or ux.dtype != u2.dtype:
+        raise ValueError(f"ux/uy/u2 dtypes differ: {ux.dtype}/{uy.dtype}/{u2.dtype}")
+    for name, a in (("ux", ux), ("uy", uy), ("u2", u2)):
+        if a.shape != x.shape or a.device != x.device:
+            raise ValueError(
+                f"{name} {tuple(a.shape)} on {a.device} differs from x "
+                f"{tuple(x.shape)} on {x.device}"
+            )
+    n = x.shape[0]
+    cols = []
+    for name, t in (("tau_tv", tau_tv), ("tau_l1", tau_l1), ("ratio", ratio)):
+        tc = _tau_plane_vector(t, n, torch.float32, x.device)
+        if tc is None:
+            raise ValueError(
+                f"{name} shape {tuple(torch.as_tensor(t).shape)} not scalar or per-plane ({n},)"
+            )
+        cols.append(tc.expand(n))
+    table = torch.stack(cols, dim=1)
+    if x.device.type == "cpu":
+        return _composite_plain(x, ux, uy, u2, table, x_bounds, mode)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, ux, uy, u2, table)):
+        raise RuntimeError(
+            "fused_admm_stencil_composite is forward-only: the kernel has no "
+            "backward; call it under torch.no_grad() or with tensors that need none"
+        )
+    out = _composite_cuda(x, ux, uy, u2, table, x_bounds, mode)
+    fused_admm_stencil_composite.launches += 1
+    return out
+
+
+fused_admm_stencil_composite.launches = 0

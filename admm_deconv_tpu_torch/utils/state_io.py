@@ -18,10 +18,12 @@ import torch
 from admm_deconv_tpu_torch.ops.solver import ADMMState
 
 
-def state_from_numpy(arrays, device: torch.device | str = "cpu") -> ADMMState:
-    """Build an :class:`ADMMState` on ``device`` from a mapping of field name
-    to array (e.g. an ``np.load`` result) or a 5-tuple in field order
-    ``(x, zx, zy, ux, uy)``, such as the JAX package's own ``ADMMState``."""
+def state_from_numpy(arrays, device: torch.device | str = "cuda") -> ADMMState:
+    """Build an :class:`ADMMState` on ``device`` (the card unless the caller
+    asks for another, as the solvers put a numpy input on the card) from a
+    mapping of field name to array (e.g. an ``np.load`` result) or a 5-tuple
+    in field order ``(x, zx, zy, ux, uy)``, such as the JAX package's own
+    ``ADMMState``."""
     if not isinstance(arrays, Mapping):
         arrays = dict(zip(ADMMState._fields, arrays, strict=True))
     return ADMMState(

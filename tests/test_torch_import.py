@@ -90,6 +90,38 @@ def test_port_trains_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_port_inference_solvers_run_with_jax_blocked():
+    """The inference slice's modules import without jax; solve_auto (both
+    branches) and the composite solvers run, and no kernel is built."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "import admm_deconv_tpu_torch as adt\n"
+        "import admm_deconv_tpu_torch.ops.composite, admm_deconv_tpu_torch.ops.policy\n"
+        "from admm_deconv_tpu_torch.ops.kernels import prox_kernels as pk, stencil_kernels as sk\n"
+        "y = torch.rand(1, 16, 24, 3, generator=torch.Generator().manual_seed(0))\n"
+        "psf = torch.zeros(5, 5); psf[2, :] = 0.2\n"
+        "x, d = adt.solve_auto(y, psf=psf, lam=0.01, rho=0.1, iters=8)\n"
+        "assert x.shape == y.shape and int(d.iterations) == 8\n"
+        "x, d = adt.solve_auto(y, psf=psf, lam=0.01, rho=0.1, max_iters=16)\n"
+        "assert bool(torch.isfinite(x).all()) and int(d.iterations) % 8 == 0\n"
+        "x = adt.composite_tv_deconvolve(y, psf=psf, lam_l1=0.002, x_bounds=(0, 1), iters=5)\n"
+        "assert float(x.min()) >= 0 and float(x.max()) <= 1\n"
+        "x, d = adt.composite_tv_deconvolve_adaptive(y, psf=psf, max_iters=4)\n"
+        "assert bool(torch.isfinite(adt.tv_objective(x, y, psf, 0.01)))\n"
+        "mods = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "        or m == 'admm_deconv_tpu' or m.startswith('admm_deconv_tpu.')]\n"
+        "assert mods == ['jax'], mods\n"
+        "for fn in (sk._kernel_fn, sk._composite_kernel_fn, pk._kernel_fn):\n"
+        "    assert fn.cache_info().currsize == 0, 'kernel built on CPU'\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_refuses_without_cuda():
     proc = _run(["chip_smoke.py"])
     assert proc.returncode != 0

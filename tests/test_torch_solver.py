@@ -177,7 +177,7 @@ def test_warm_start_from_jax_state(problem, init_path):
     y, psf = problem
     kw = {"lam": 0.01, "rho": 0.1}
     _, sj = _jax(y, psf, iters=7, return_state=True, **kw)
-    st = state_from_numpy(sj)
+    st = state_from_numpy(sj, device="cpu")
     assert all(isinstance(t, torch.Tensor) for t in st)
     diag = init_path == "diagnostics"
     want = _jax(y, psf, iters=6, init_state=sj, return_diagnostics=diag, **kw)
@@ -195,7 +195,7 @@ def test_state_round_trip_to_jax(problem, tmp_path):
     assert set(arrays) == set(ADMMState._fields)
     np.savez(tmp_path / "state.npz", **arrays)
     with np.load(tmp_path / "state.npz") as loaded:
-        back = state_from_numpy(loaded)
+        back = state_from_numpy(loaded, device="cpu")
     for a, b in zip(back, st):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     want = _jax(y, psf, iters=4, init_state=JaxADMMState(**arrays), **kw)
@@ -312,3 +312,46 @@ def test_callable_prox_matches_named(problem):
         _port(y, psf, prox=lambda vx, vy, t: soft(vx, vy, t), **kw),
         _port(y, psf, prox="soft", **kw), rtol=0, atol=0,
     )
+
+
+def _entry_points():
+    import admm_deconv_tpu_torch as adt
+
+    return {
+        "tv_deconvolve": lambda y, p: adt.tv_deconvolve(y, psf=p, lam=0.01, rho=0.1, iters=3),
+        "adaptive": lambda y, p: adt.tv_deconvolve_adaptive(y, psf=p, lam=0.01, rho=0.1,
+                                                            max_iters=4, check_every=2)[0],
+        "solve_auto": lambda y, p: adt.solve_auto(y, psf=p, lam=0.01, rho=0.1, iters=4)[0],
+        "composite": lambda y, p: adt.composite_tv_deconvolve(y, psf=p, iters=3),
+        "composite_adaptive": lambda y, p: adt.composite_tv_deconvolve_adaptive(
+            y, psf=p, max_iters=3)[0],
+    }
+
+
+ENTRY_POINTS = ["tv_deconvolve", "adaptive", "solve_auto", "composite", "composite_adaptive"]
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_cpu_tensor_stays_on_the_cpu(problem, entry):
+    y, psf = problem
+    out = _entry_points()[entry](torch.from_numpy(y), psf)  # a numpy PSF follows y
+    assert out.device.type == "cpu" and out.shape == y.shape
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_numpy_input_goes_to_the_card(problem, entry, monkeypatch):
+    """A numpy ``y`` goes to the card, as JAX puts it on its default device:
+    with no CUDA device the call raises instead of solving on the CPU."""
+    y, psf = problem
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="goes to the CUDA device"):
+        _entry_points()[entry](y, psf)
+
+
+def test_state_from_numpy_defaults_to_the_card(problem):
+    y, psf = problem
+    _, sj = _jax(y, psf, lam=0.01, rho=0.1, iters=2, return_state=True)
+    # CPU-only torch: building a CUDA tensor fails, so the default is the card.
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        state_from_numpy(sj)
+    assert all(t.device.type == "cpu" for t in state_from_numpy(sj, device="cpu"))
