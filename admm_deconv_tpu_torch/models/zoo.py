@@ -244,9 +244,16 @@ class DeconvBank(nn.Module):
         return chcat(*[getattr(self, f"ADMMDeconv_{i}")(x) for i in range(3)])
 
 
-def build_model(name: str, cfg: dict | None = None) -> nn.Module:
+def build_model(name: str, cfg: dict | None = None,
+                device: torch.device | str = "cuda") -> nn.Module:
     """Config-driven model factory (``use_iso``, ``fft_mode``, ``prox_impl``
-    and ``state_dtype`` from a training config dict)."""
+    and ``state_dtype`` from a training config dict).
+
+    Returns the module on ``device``: the card unless the caller asks for
+    another, as the JAX package's ``init`` puts the parameters on its
+    default device.  Without a CUDA device the default raises instead of
+    building on the CPU.
+    """
     cfg = cfg or {}
     iso = bool(cfg.get("use_iso", True))
     fft_mode = str(cfg.get("fft_mode", "auto"))
@@ -263,7 +270,12 @@ def build_model(name: str, cfg: dict | None = None) -> nn.Module:
         "deconv_bank": lambda: DeconvBank(iso=not iso, fft_mode=fft_mode,
                                           prox_impl=prox_impl),
     }
-    try:
-        return models[name]()
-    except KeyError:
-        raise ValueError(f"unknown model {name!r}; expected one of {sorted(models)}") from None
+    if name not in models:
+        raise ValueError(f"unknown model {name!r}; expected one of {sorted(models)}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_model puts the model on the CUDA device and none is available; "
+            "pass device='cpu' to build it on the CPU"
+        )
+    return models[name]().to(device)

@@ -21,6 +21,10 @@ or launch failure raises.
 :func:`fused_admm_stencil_composite` adds the composite prior's identity
 split to the same pass (``csrc/stencil_composite.cu`` on a CUDA tensor,
 :func:`_composite_plain` on a CPU tensor); it is forward-only, as in JAX.
+:func:`fused_admm_stencil_halo` runs the forward pass over one H-tile of
+the tiled solver, with the neighbour tiles' rows in place of the H wrap
+(``csrc/stencil_halo.cu`` on a CUDA tensor, :func:`_halo_plain` on a CPU
+tensor); forward-only too.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
@@ -137,6 +141,11 @@ def _composite_kernel_fn():
         "stencil_composite", "admm_stencil_composite", 9,
         (*_STENCIL_ARGS, ctypes.c_int, ctypes.c_float, ctypes.c_float),
     )
+
+
+@functools.cache
+def _halo_kernel_fn():
+    return _load_kernel("stencil_halo", "admm_stencil_halo", 11, (*_STENCIL_ARGS, ctypes.c_int64))
 
 
 def _check_cuda_operands(x, ux):
@@ -460,3 +469,101 @@ def fused_admm_stencil_composite(
 
 
 fused_admm_stencil_composite.launches = 0
+
+
+def _halo_plain(x, ux, uy, x_top, x_bot, ux_bot, uy_bot, tau, mode):
+    """Plain-torch twin of the tile kernel: :func:`_stencil_plain`'s
+    arithmetic on the tile extended by its halo rows (``x_top`` above,
+    ``x_bot``/``ux_bot``/``uy_bot`` below), W circular, H not.
+
+    Computes in ``x``'s dtype (duals and halos are cast up) and returns the
+    tile's ``(q, ux', uy')`` in the duals' dtype.
+    """
+    f = x.dtype
+    t = tau if tau.ndim == 0 else tau[:, None, None]
+    x_ext = torch.cat([x_top.to(f), x, x_bot.to(f)], dim=1)  # rows -1 .. h
+    x_lo = x_ext[:, 1:]  # rows 0 .. h
+    dxx = x_lo - torch.roll(x_lo, 1, dims=-1)
+    dxy = x_lo - x_ext[:, :-1]
+    vx = dxx + torch.cat([ux.to(f), ux_bot.to(f)], dim=1)
+    vy = dxy + torch.cat([uy.to(f), uy_bot.to(f)], dim=1)
+    zx, zy = prox_apply(mode, vx, vy, t)
+    ux_new = vx - zx
+    uy_new = vy - zy
+    wx = (zx - ux_new)[:, :-1]
+    wy = zy - uy_new
+    q = (wx - torch.roll(wx, -1, dims=-1)) + (wy[:, :-1] - wy[:, 1:])
+    out = ux.dtype
+    return q.to(out), ux_new[:, :-1].to(out), uy_new[:, :-1].to(out)
+
+
+def _halo_cuda(x, ux, uy, halos, tau, mode):
+    """Check the operands and launch ``csrc/stencil_halo.cu`` on the current
+    stream.  The four halo rows go in as fp32 views that share one plane
+    stride (copied only where they do not); outputs are fresh buffers."""
+    _check_cuda_operands(x, ux)
+    n, h, w = x.shape
+    x, ux, uy = x.contiguous(), ux.contiguous(), uy.contiguous()
+    halos = [a.to(torch.float32) for a in halos]  # bf16 rows widen exactly
+    if len({a.stride(0) for a in halos}) > 1 or any(a.stride(-1) != 1 for a in halos):
+        halos = [a.contiguous() for a in halos]
+    tau_n = tau.to(torch.float32).expand(n).contiguous()
+    q = torch.empty_like(ux)
+    ux_new = torch.empty_like(ux)
+    uy_new = torch.empty_like(ux)
+    _launch(
+        _halo_kernel_fn, "stencil_halo", x.device,
+        *(_ptr(a) for a in (x, ux, uy, *halos, tau_n, q, ux_new, uy_new)),
+        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16), halos[0].stride(0),
+    )
+    return q, ux_new, uy_new
+
+
+def fused_admm_stencil_halo(
+    x: torch.Tensor,
+    ux: torch.Tensor,
+    uy: torch.Tensor,
+    x_top: torch.Tensor,
+    x_bot: torch.Tensor,
+    ux_bot: torch.Tensor,
+    uy_bot: torch.Tensor,
+    tau,
+    mode: str = "aniso",
+):
+    """:func:`fused_admm_stencil` over an H-tile of a larger image.
+
+    The H wrap is replaced by the neighbour tiles' rows, each ``(N, 1, W)``:
+    ``x_top`` is the global row above the tile's first row (the previous
+    tile's last row), ``x_bot``/``ux_bot``/``uy_bot`` the rows below its last
+    row (the next tile's first rows).  W stays circular.  ``x`` is float32
+    ``(N, H, W)``; ``ux``/``uy`` float32 or bfloat16, the dtype of the
+    outputs; the halo rows float32 or bfloat16 (widened exactly); ``tau``
+    a scalar or per-plane ``(N,)``.  Unlike the TPU kernel there is no
+    row-block constraint: every tile height, one row included, takes the
+    kernel.  Forward-only, as in JAX: on a CUDA tensor a call that autograd
+    would record raises.
+
+    Returns ``(q, ux_new, uy_new)`` for the tile's rows.
+    """
+    tau_c = _check(x, ux, uy, tau, mode, torch.float32)
+    n, _, w = x.shape
+    halos = (x_top, x_bot, ux_bot, uy_bot)
+    for name, a in zip(("x_top", "x_bot", "ux_bot", "uy_bot"), halos):
+        if tuple(a.shape) != (n, 1, w):
+            raise ValueError(f"{name} must be (N, 1, W)={(n, 1, w)}, got {tuple(a.shape)}")
+        if a.dtype not in _DUAL_DTYPES or a.device != x.device:
+            raise ValueError(f"{name} must be float32 or bfloat16 on {x.device}, "
+                             f"got {a.dtype} on {a.device}")
+    if x.device.type == "cpu":
+        return _halo_plain(x, ux, uy, *halos, tau_c, mode)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, ux, uy, *halos, tau_c)):
+        raise RuntimeError(
+            "fused_admm_stencil_halo is forward-only: the kernel has no backward; "
+            "call it under torch.no_grad() or with tensors that need none"
+        )
+    out = _halo_cuda(x, ux, uy, halos, tau_c, mode)
+    fused_admm_stencil_halo.launches += 1
+    return out
+
+
+fused_admm_stencil_halo.launches = 0

@@ -9,7 +9,7 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. device: a CUDA device must exist (otherwise exit 2 and print no result);
    prints ``nvidia-smi``'s name and power limit of the card;
-2. build: compiles the port's four CUDA kernels from
+2. build: compiles the port's five CUDA kernels from
    ``admm_deconv_tpu_torch/csrc``, one nvcc per source, all at once;
 3. kernels: the forward stencil against its plain torch version on the
    card, every prox mode, fp32 and bf16 duals, scalar and per-plane tau, at
@@ -21,7 +21,11 @@ Phases, in order; any failure raises and exits non-zero:
    prox-dual kernel against ``_prox_dual_plain`` (and its gradient against
    autograd through the plain composition) and the composite stencil
    against ``_composite_plain``, every mode, tau kind, carry dtype and box,
-   at every plane stack an inference path hands them;
+   at every plane stack an inference path hands them; then the tile-halo
+   stencil against ``_halo_plain`` with random halo rows at every tile
+   stack a tiled path hands it (a one-row tile included), and over 2 and 4
+   tiles of the 1080p batch-4 stack against the circular kernel on the
+   whole, bit for bit;
 4. quality: the 256^2 blocks scenario (3 RGB images, 7x7 motion PSF,
    100 iterations) through ``tv_deconvolve``; PSNR floors, agreement with
    the same solve on the CPU, and one kernel launch per loop iteration;
@@ -40,20 +44,27 @@ Phases, in order; any failure raises and exits non-zero:
    at 1080p (fp32 and bf16 carry, against the plain path, the box, PSNR)
    and its adaptive twin; then the prox-dual and composite kernels alone
    against their plain twins and HBM floors;
-8. train parity: one gmsd + AdaBelief step of the same seeded AdmmDenoiser
+8. tiled solvers on a one-rank NCCL tile mesh: ``bench_suite.py``'s
+   tiled_tile1_1080p (fp32 and bf16 state) and
+   tiled_adaptive_tile1_1080p_check8 rows, the 4K frame and the tiled
+   composite, each beside the single-device solver on the same inputs;
+   the blocks scenario's quality floor; a profile of the 1080p tiled solve
+   (collectives, halo gather and re-shard copies against the single-device
+   solve); the tile-halo kernel alone against its plain twin and floor;
+9. train parity: one gmsd + AdaBelief step of the same seeded AdmmDenoiser
    on the card and on the CPU: loss, gradients and updated parameters;
-9. training path: ``bench.py``'s flagship step (AdmmDenoiser, 2x112^2x3,
+10. training path: ``bench.py``'s flagship step (AdmmDenoiser, 2x112^2x3,
    gmsd, AdaBelief lr 1e-4), fp32 and bf16 state, ms/step and kernel
    launches per step;
-10. production trainer: ``Trainer.fit`` for one epoch at
+11. production trainer: ``Trainer.fit`` for one epoch at
     ``configs/train_cfg.json`` (batch 2, 256^2 crops) on seeded blocks +
     motion blur + noise pairs, CSV history, checkpoint and resume, ms/step;
-11. TV layer: the 1080p ``ADMMDeconv`` train step (2x1080x1920x3, 20
+12. TV layer: the 1080p ``ADMMDeconv`` train step (2x1080x1920x3, 20
     iterations, remat, Adam, mse) through the kernels (fp32, bf16 state)
     and through the plain composition, ms/step;
-12. kernel times: the three stencil kernels and their plain versions at
+13. kernel times: the three stencil kernels and their plain versions at
     the TV layer's 6 planes of 1080x1920;
-13. profile: device time by kernel and idle share for one flagship step and
+14. profile: device time by kernel and idle share for one flagship step and
     one TV-layer step.
 
 Every path zeroes the kernels' launch counters just before it runs and
@@ -94,7 +105,8 @@ INFERENCE_SHAPES = [(12, 512, 512), (9, 256, 256)]
 # shapes and the 1080p batch-4 solve.
 KERNEL_SHAPES = [(2, 24, 128), (1, 256, 2048), (1, 384, 2048), (12, 1080, 1920),
                  *INFERENCE_SHAPES, *BWD_SHAPES]
-KERNEL_SOURCES = ("stencil_fwd", "stencil_bwd", "prox_dual", "stencil_composite")
+KERNEL_SOURCES = ("stencil_fwd", "stencil_bwd", "prox_dual", "stencil_composite",
+                  "stencil_halo")
 CSRC = "admm_deconv_tpu_torch/csrc"
 TPU_KERNELS = "admm_deconv_tpu/ops/pallas/stencil_kernels.py"
 TPU_PROX_KERNELS = "admm_deconv_tpu/ops/pallas/prox_kernels.py"
@@ -103,6 +115,17 @@ TPU_PROX_KERNELS = "admm_deconv_tpu/ops/pallas/prox_kernels.py"
 PROX_DUAL_SHAPES = [(12, 1080, 1920), *INFERENCE_SHAPES, (3, 37, 101)]
 PROX_DUAL_SCALAR_SHAPES = [(2, 3, 5, 7)]
 COMPOSITE_SHAPES = [(12, 1080, 1920), *INFERENCE_SHAPES, (3, 37, 101), (30, 112, 112)]
+# The tile-halo kernel's tile stacks: the 1080p batch-4 solve and the 4K
+# frame at one tile, their tiles at T = 4, the blocks scenario at one tile,
+# an odd shape, a one-row tile; and the tile counts of the decomposition
+# check.
+HALO_SHAPES = [(12, 1080, 1920), (3, 2160, 3840), (12, 270, 1920), (3, 540, 3840),
+               (9, 256, 256), (3, 37, 101), (2, 1, 64)]
+HALO_TILES = (2, 4)
+# bench.py's 4K frame; bench_suite.py's tiled adaptive row (96 iterations,
+# check_every 8, tolerances 0 so every block runs).
+FRAME_4K = (1, 2160, 3840, 3)
+TILED_ADAPTIVE_ITERS = 96
 # bench_suite.py's time-to-tolerance scenes: tile grid, tile px, eps_abs,
 # eps_rel, iteration cap (check_every=8, adapt_rho=True).
 TTQ = {"ttq_1080p": ((4, 27, 48, 3), 40, 1e-4, 1e-3, 200),
@@ -182,7 +205,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     # One nvcc per source, all started together: each thread waits on its own.
     loaders = (stencil_kernels._kernel_fn, stencil_kernels._bwd_kernel_fn,
-               prox_kernels._kernel_fn, stencil_kernels._composite_kernel_fn)
+               prox_kernels._kernel_fn, stencil_kernels._composite_kernel_fn,
+               stencil_kernels._halo_kernel_fn)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for future in [pool.submit(fn) for fn in loaders]:
             future.result()
@@ -416,7 +440,7 @@ def phase_quality(dev) -> None:
         for sdt in (None, "bfloat16")
     }
     envelope = float((cpu["bfloat16"] - cpu[None]).abs().max())
-    for sdt, wrapper, floor in ((None, fused_admm_stencil, 54.99),
+    for sdt, wrapper, floor in ((None, fused_admm_stencil, QUALITY_FLOORS["tv_deconvolve fp32"]),
                                 ("bfloat16", fused_admm_stencil_mixed, 54.85)):
         before = wrapper.launches
         x = tv_deconvolve(y, psf=torch.from_numpy(psf).to(dev), state_dtype=sdt, **kw)
@@ -537,7 +561,8 @@ def _counters() -> dict:
             "fused_admm_stencil_mixed": sk.fused_admm_stencil_mixed,
             "stencil_bwd": sk.fused_admm_stencil_bwd,
             "prox_dual": pk.fused_prox_dual,
-            "stencil_composite": sk.fused_admm_stencil_composite}
+            "stencil_composite": sk.fused_admm_stencil_composite,
+            "stencil_halo": sk.fused_admm_stencil_halo}
 
 
 def expect_counts(**launched) -> dict:
@@ -691,9 +716,9 @@ def phase_trainer(dev, seed: int) -> float:
     evals = training_pairs(seed + 1, n_eval, cfg.batch_size, cfg.im_shape)
 
     def make(model_seed):
-        model = build_model(cfg.model, dataclasses.asdict(cfg))
+        model = build_model(cfg.model, dataclasses.asdict(cfg), device=dev)
         init_parameters(model, torch.Generator().manual_seed(model_seed))
-        trainer = Trainer(model.to(dev), cfg)
+        trainer = Trainer(model, cfg)
         return trainer, trainer.init_state()
 
     with tempfile.TemporaryDirectory() as model_dir:
@@ -971,6 +996,283 @@ def phase_composite_kernel(dev, gen) -> dict:
     return worst
 
 
+def phase_halo_kernel(dev, gen) -> dict:
+    """The tile-halo kernel against ``_halo_plain`` on the same CUDA inputs
+    with random halo rows; then over 2 and 4 tiles, each given its
+    neighbours' rows, against the circular kernel on the whole stack."""
+    from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES
+    from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
+        _halo_plain,
+        fused_admm_stencil,
+        fused_admm_stencil_halo,
+        fused_admm_stencil_mixed,
+    )
+
+    print("[halo] tolerance: kernel equal to the plain twin bit for bit (fp32 and bf16)")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in HALO_SHAPES:
+        n, _, w = shape
+        x = torch.randn(shape, generator=gen, device=dev)
+        u32 = [0.5 * torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
+        halos = [torch.randn((n, 1, w), generator=gen, device=dev) for _ in range(2)]
+        halos += [0.5 * torch.randn((n, 1, w), generator=gen, device=dev) for _ in range(2)]
+        tau_v = torch.empty(n, device=dev).uniform_(0.1, 0.5, generator=gen)
+        for dual in (torch.float32, torch.bfloat16):
+            ux, uy = (u.to(dual) for u in u32)
+            for mode in MODES:
+                for tau_kind, tau in (("scalar", torch.tensor(0.3, device=dev)),
+                                      ("plane", tau_v)):
+                    before = fused_admm_stencil_halo.launches
+                    got = fused_admm_stencil_halo(x, ux, uy, *halos, tau, mode=mode)
+                    want = _halo_plain(x, ux, uy, *halos, tau, mode)
+                    torch.cuda.synchronize()
+                    check(fused_admm_stencil_halo.launches == before + 1,
+                          "fused_admm_stencil_halo launched its kernel")
+                    what = f"{shape} {mode} {dual} tau={tau_kind}"
+                    err = 0.0
+                    for g, wnt in zip(got, want):
+                        check(g.dtype == dual and g.shape == x.shape, f"halo {what} layout")
+                        check(bool(torch.isfinite(g).all()), f"halo {what} non-finite")
+                        err = max(err, float((g.float() - wnt.float()).abs().max()))
+                        check(torch.equal(g, wnt), f"halo kernel vs plain {what}: {err}")
+                    worst[dual] = max(worst[dual], err)
+                    print(f"[halo] {str(shape):16s} {mode:5s} {str(dual)[6:]:8s} "
+                          f"tau={tau_kind:6s} max|kernel-plain|={err:.3e}")
+    # The tile decomposition: the tiles' kernel outputs, concatenated, are
+    # the circular kernel's on the whole stack.
+    shape = (BENCH_SHAPE[0] * BENCH_SHAPE[3],) + BENCH_SHAPE[1:3]
+    n, h, _ = shape
+    x = torch.randn(shape, generator=gen, device=dev)
+    u32 = [0.5 * torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
+    tau = torch.empty(n, device=dev).uniform_(0.1, 0.5, generator=gen)
+    for dual in (torch.float32, torch.bfloat16):
+        ux, uy = (u.to(dual) for u in u32)
+        whole = fused_admm_stencil if dual == torch.float32 else fused_admm_stencil_mixed
+        for mode in MODES:
+            want = whole(x, ux, uy, tau, mode=mode)
+            for tiles in HALO_TILES:
+                ht = h // tiles
+                outs = []
+                for t in range(tiles):
+                    rows, below = slice(t * ht, (t + 1) * ht), ((t + 1) * ht) % h
+                    outs.append(fused_admm_stencil_halo(
+                        x[:, rows], ux[:, rows], uy[:, rows], x[:, (t * ht - 1) % h, None],
+                        x[:, below, None], ux[:, below, None].float(),
+                        uy[:, below, None].float(), tau, mode=mode))
+                for k in range(3):
+                    check(torch.equal(torch.cat([o[k] for o in outs], dim=1), want[k]),
+                          f"halo kernel over {tiles} tiles vs circular kernel {mode} {dual} out {k}")
+            print(f"[halo] {shape} over {HALO_TILES} tiles, {mode}, {str(dual)[6:]}: the tiles' "
+                  f"outputs equal the circular kernel's bit for bit")
+    torch.cuda.synchronize()
+    return worst
+
+
+def phase_tiled(dev) -> dict:
+    """The tiled solvers on a one-rank NCCL tile mesh, each beside the
+    single-device solver on the same inputs in this run."""
+    from admm_deconv_tpu_torch import (
+        composite_tv_deconvolve,
+        peak_snr,
+        tv_deconvolve,
+        tv_deconvolve_adaptive,
+    )
+    from admm_deconv_tpu_torch.parallel import (
+        make_mesh,
+        tiled_composite_tv_deconvolve,
+        tiled_tv_deconvolve,
+    )
+
+    mesh = make_mesh({"tile": 1})
+    check(torch.distributed.get_backend() == "nccl", "the tile mesh runs on NCCL")
+    print(f"[tiled] mesh {mesh}, backend {torch.distributed.get_backend()}")
+    psf = motion_psf(dev)
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.random(BENCH_SHAPE, dtype=np.float64).astype(np.float32)).to(dev)
+    kw = {"psf": psf, "lam": LAM, "rho": RHO}
+    out = {}
+
+    def rate(solve, v, iters):
+        """Iterations/s over REPEATS fresh inputs after one warm-up, and the
+        first solve's result."""
+        first = solve(v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(REPEATS):
+            solve(v + 0.001 * (i + 1))
+        torch.cuda.synchronize()
+        return iters * REPEATS / (time.perf_counter() - t0), first
+
+    def run(label, tiled, single, v, iters, launches, tol, single_counts=None):
+        reset_counts()
+        r_tiled, x_tiled = rate(tiled, v, iters)
+        counts = read_counts()
+        want = expect_counts(stencil_halo=(REPEATS + 1) * launches)
+        check(counts == want, f"{label} tiled launches {counts} != {want}")
+        r_single, x_single = rate(single, v, iters)
+        check(x_ok(x_tiled, v) and x_ok(x_single, v), f"{label} outputs")
+        dx = float((x_tiled - x_single).abs().max())
+        print(f"[tiled] {label}: tiled T=1 {r_tiled:.2f} it/s, single device {r_single:.2f} "
+              f"it/s ({REPEATS} fresh inputs after one warm-up); max|x_tiled - x_single| "
+              f"{dx:.3e} (bound {tol:.3e}); {launches} stencil_halo launches a solve")
+        check(dx <= tol, f"{label}: tiled off the single-device solve by {dx} > {tol}")
+        out[label] = {"it_s": r_tiled, "single_it_s": r_single, "dx": dx,
+                      "launches": counts["stencil_halo"] // (REPEATS + 1)}
+        return x_tiled, x_single
+
+    solve_kw = {**kw, "iters": BENCH_ITERS}
+    run("tiled_tile1_1080p fp32",
+        lambda v: tiled_tv_deconvolve(v, mesh=mesh, **solve_kw),
+        lambda v: tv_deconvolve(v, **solve_kw), y, BENCH_ITERS, BENCH_ITERS - 1, 1e-4)
+    # bf16 state rounds the carry where the transforms differ in the last
+    # fp32 bit: held to twice the single-device bf16-vs-fp32 gap.
+    envelope = float((tv_deconvolve(y, state_dtype="bfloat16", **solve_kw)
+                      - tv_deconvolve(y, **solve_kw)).abs().max())
+    run("tiled_tile1_1080p bf16",
+        lambda v: tiled_tv_deconvolve(v, mesh=mesh, state_dtype="bfloat16", **solve_kw),
+        lambda v: tv_deconvolve(v, state_dtype="bfloat16", **solve_kw), y, BENCH_ITERS,
+        BENCH_ITERS - 1, 2 * envelope + 1e-3)
+
+    # bench_suite.py's tiled adaptive row against the single-device adaptive
+    # solver at the same settings.
+    n_it = TILED_ADAPTIVE_ITERS
+    akw = {**kw, "check_every": CHECK_EVERY, "eps_abs": 0.0, "eps_rel": 0.0, "adapt_rho": True}
+    reset_counts()
+    xt, dt = tiled_tv_deconvolve(y, mesh=mesh, iters=n_it, early_stop=True,
+                                 return_diagnostics=True, **akw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    blocks = n_it // CHECK_EVERY
+    want = expect_counts(stencil_halo=(CHECK_EVERY - 2) * blocks)
+    check(counts == want, f"tiled adaptive launches {counts} != {want}")
+    xs, ds = tv_deconvolve_adaptive(y, max_iters=n_it, **akw)
+    dx = float((xt - xs).abs().max())
+    same_rho = bool(torch.equal(dt.rho, ds.rho))
+    sec_t, _ = timed_solves(lambda v: tiled_tv_deconvolve(
+        v, mesh=mesh, iters=n_it, early_stop=True, return_diagnostics=True, **akw), y, TTQ_REPEATS)
+    sec_s, _ = timed_solves(lambda v: tv_deconvolve_adaptive(v, max_iters=n_it, **akw), y,
+                            TTQ_REPEATS)
+    print(f"[tiled] tiled_adaptive_tile1_1080p_check8: tiled {int(dt.iterations)} iterations "
+          f"{sec_t:.4f} s a solve, single device {int(ds.iterations)} iterations {sec_s:.4f} s "
+          f"(median of {TTQ_REPEATS}); rho equal per plane: {same_rho} "
+          f"({dt.rho.unique().tolist()}); max|dx| {dx:.3e}; launches {counts}")
+    check(int(dt.iterations) == int(ds.iterations) == n_it, "tiled adaptive iterations")
+    check(same_rho, "tiled adaptive rho off the single-device rho")
+    check(dx <= 1e-4, f"tiled adaptive x off the single-device x by {dx}")
+    out["tiled_adaptive_tile1_1080p_check8"] = {
+        "s": sec_t, "single_s": sec_s, "dx": dx, "launches": counts["stencil_halo"]}
+
+    rng4k = np.random.default_rng(0)
+    y4k = torch.from_numpy(rng4k.random(FRAME_4K, dtype=np.float64).astype(np.float32)).to(dev)
+    run("4K frame fp32", lambda v: tiled_tv_deconvolve(v, mesh=mesh, **solve_kw),
+        lambda v: tv_deconvolve(v, **solve_kw), y4k, BENCH_ITERS, BENCH_ITERS - 1, 1e-4)
+    del y4k
+
+    ckw = {"psf": psf, "iters": BENCH_ITERS, **COMPOSITE_KW}
+    x_tiled, _ = run("tiled composite fp32",
+                     lambda v: tiled_composite_tv_deconvolve(v, mesh=mesh, **ckw),
+                     lambda v: composite_tv_deconvolve(v, **ckw), y, BENCH_ITERS,
+                     BENCH_ITERS - 1, 1e-4)
+    check(float(x_tiled.min()) >= 0.0 and float(x_tiled.max()) <= 1.0, "tiled composite box")
+    print(f"[tiled] tiled composite in [0, 1]: min {float(x_tiled.min())} max "
+          f"{float(x_tiled.max())}")
+
+    clean, blurred, bpsf = blocks_scenario()
+    reset_counts()
+    xq = tiled_tv_deconvolve(torch.from_numpy(blurred).to(dev), psf=torch.from_numpy(bpsf).to(dev),
+                             lam=LAM, rho=RHO, iters=100, mesh=mesh)
+    torch.cuda.synchronize()
+    check(read_counts() == expect_counts(stencil_halo=99), "tiled quality-run launches")
+    db = float(peak_snr(torch.clamp(xq, 0, 1), torch.from_numpy(clean).to(dev)))
+    floor = QUALITY_FLOORS["tv_deconvolve fp32"]
+    print(f"[tiled] blocks scenario, 100 iterations: PSNR {db:.5f} dB (floor {floor})")
+    check(db >= floor, f"tiled blocks PSNR {db} below {floor}")
+
+    profile_tiled(lambda v: tiled_tv_deconvolve(v, mesh=mesh, **solve_kw),
+                  lambda v: tv_deconvolve(v, **solve_kw), y)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+# Device-time groups of the tiled solve's profile, by kernel name.  On a
+# one-rank NCCL group a collective is a device-to-device copy; the device
+# time under the collectives' ``nccl:*`` ranges is reported beside.
+TILED_PROFILE_GROUPS = (
+    ("halo and row concatenations (torch.stack / torch.cat)", ("CatArrayBatchedCopy",)),
+    ("copies (collectives' self-copies, re-shard permutes, c2r input clones)",
+     ("copy", "Memcpy")),
+    ("stencil kernels", ("stencil_halo_kernel", "stencil_fwd_kernel")),
+    ("cuFFT", ("fft", "FFT")),
+)
+
+
+def profile_tiled(tiled, single, y) -> None:
+    """Device time by kernel group for one tiled and one single-device
+    1080p solve under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, solve in (("tiled T=1", tiled), ("single device", single)):
+        solve(y)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve(y + 1e-4 * (TTQ_REPEATS + 1))
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels = device_events(prof, label)
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        collectives = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.key.startswith("nccl:")}
+        coll_ms = sum(collectives.values())
+        print(f"[tiled profile] {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+              f"idle share {1 - busy / wall_ms:.3f}; device time under the collectives "
+              f"{coll_ms:.3f} ms ({coll_ms / busy:.1%} of busy): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in collectives.items()))
+        seen = set()
+        for group, keys in TILED_PROFILE_GROUPS:
+            members = [e for e in kernels if e.key not in seen and any(k in e.key for k in keys)]
+            seen |= {e.key for e in members}
+            ms = sum(e.self_device_time_total for e in members) / 1e3
+            print(f"[tiled profile]   {group}: {ms:.3f} ms ({ms / busy:.1%} of busy), "
+                  f"{sum(e.count for e in members)} launches")
+        ms = sum(e.self_device_time_total for e in kernels if e.key not in seen) / 1e3
+        print(f"[tiled profile]   everything else: {ms:.3f} ms ({ms / busy:.1%})")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"[tiled profile]     {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+                  f"{e.key[:90]}")
+
+
+def phase_halo_times(dev, gen) -> dict:
+    """The tile-halo kernel and its plain twin at the 1080p batch-4 stack
+    (one tile), CUDA events, fp32 and bf16 duals."""
+    from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
+        _halo_plain,
+        fused_admm_stencil_halo,
+    )
+
+    shape = (BENCH_SHAPE[0] * BENCH_SHAPE[3],) + BENCH_SHAPE[1:3]
+    n, h, w = shape
+    x = torch.rand(shape, generator=gen, device=dev)
+    halos = [torch.rand((n, 1, w), generator=gen, device=dev) for _ in range(4)]
+    tau = torch.tensor(LAM / RHO, device=dev)
+    times = {}
+    for key, dual in (("halo_fp32", torch.float32), ("halo_bf16", torch.bfloat16)):
+        ux, uy = ((0.05 * torch.randn(shape, generator=gen, device=dev)).to(dual)
+                  for _ in range(2))
+        kernel = lambda ux=ux, uy=uy: fused_admm_stencil_halo(x, ux, uy, *halos, tau)  # noqa: E731
+        plain = lambda ux=ux, uy=uy: _halo_plain(x, ux, uy, *halos, tau, "aniso")  # noqa: E731
+        # Bytes: x, ux, uy in and q, ux', uy' out per pixel, plus the four
+        # fp32 halo rows (16 B per plane column); 21 operations a pixel.
+        bytes_px = (14 if dual == torch.bfloat16 else 24) + 16 / h
+        p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kernel, kernel, plain))
+        times[key] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), **bound(shape, bytes_px, 21)}
+        print(f"[times] {shape} {key}, aniso: kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.4f}/{p2:.4f} ms per call; HBM floor {times[key]['bound_ms']:.4f} ms, "
+              f"kernel at {times[key]['bound_ms'] / min(k1, k2):.1%} of it")
+    return times
+
+
 def ttq_scene(dev, name: str):
     """``scripts/bench_suite.py``'s time-to-tolerance blocks scene (seed 1,
     7x7 motion blur), the blur on the card: only the PSF's middle row is
@@ -1185,8 +1487,10 @@ def phase_composite(dev) -> dict:
 #   solve_auto tolerance branch (eps 1e-4/1e-3, check_every 8, 40 iterations,
 #     bf16): JAX 55.61966 (55.65547 fp32), port CPU 55.61136, H100 55.60950;
 #   composite (lam_l1 0.002, rho1 = rho2 = 0.021, box [0, 1]): JAX 51.47631
-#     fp32; bf16 JAX 51.39770, port CPU 51.39394, H100 51.39671.
+#     fp32; bf16 JAX 51.39770, port CPU 51.39394, H100 51.39671;
+#   tv_deconvolve fp32 (also the tiled solver's): JAX 54.9997.
 QUALITY_FLOORS = {
+    "tv_deconvolve fp32": 54.99,
     "solve_auto iters=100 fp32": 54.98967, "solve_auto iters=100 bf16": 54.91967,
     "solve_auto tolerance bf16": 55.59950,
     "composite fp32": 51.46631, "composite bf16": 51.38394,
@@ -1284,6 +1588,7 @@ def main() -> None:
     worst_bwd = phase_bwd_kernels(dev, gen)
     worst_prox = phase_prox_dual_kernel(dev, gen)
     worst_composite = phase_composite_kernel(dev, gen)
+    worst_halo = phase_halo_kernel(dev, gen)
     phase_quality(dev)
     phase_quality_solvers(dev)
     solve_path = phase_main_path(dev, gen)
@@ -1293,6 +1598,8 @@ def main() -> None:
     auto = phase_solve_auto(dev)
     composite = phase_composite(dev)
     new_times = phase_new_kernel_times(dev, gen)
+    tiled = phase_tiled(dev)
+    new_times |= phase_halo_times(dev, gen)
     phase_train_parity(dev, args.seed)
     flagship = phase_flagship(dev, args.seed)
     trainer_ms = phase_trainer(dev, args.seed)
@@ -1315,12 +1622,16 @@ def main() -> None:
           + ", ".join(f"{k} {v['it_s']:.2f}" for k, v in auto.items() if "it_s" in v)
           + "; composite it/s: " + ", ".join(
               f"{k} {v['it_s']:.2f}" for k, v in composite.items() if "it_s" in v))
+    print("[summary] tiled T=1 against the single device: " + "; ".join(
+        f"{k} {v['it_s']:.2f} / {v['single_it_s']:.2f} it/s" if "it_s" in v else
+        f"{k} {v['s']:.4f} / {v['single_s']:.4f} s" for k, v in tiled.items()))
     # The training path's launches for the stencil kernels; this slice's
     # main paths (the adaptive ttq_1080p solve, the fp32 composite solve)
     # for the prox-dual and composite kernels.
     launches = flagship["launches"] | {
         "prox_dual": adaptive["ttq_1080p"]["launches"]["prox_dual"],
-        "stencil_composite": composite["fp32"]["launches"]["stencil_composite"]}
+        "stencil_composite": composite["fp32"]["launches"]["stencil_composite"],
+        "stencil_halo": tiled["tiled_tile1_1080p fp32"]["launches"]}
     times |= new_times
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{CSRC}/{src}.cu", "replaces": replaces,
@@ -1339,11 +1650,15 @@ def main() -> None:
              worst_prox, "prox_dual_fp32"),
             ("fused_admm_stencil_composite", "stencil_composite", "stencil_composite",
              f"{TPU_KERNELS}:260", max(worst_composite.values()), "composite_fp32"),
+            ("fused_admm_stencil_halo", "stencil_halo", "stencil_halo", f"{TPU_KERNELS}:899",
+             max(worst_halo.values()), "halo_fp32"),
         )
     ]}
-    bf16 = times["composite_bf16"]
-    record["kernels"][-1] |= {"ms_bf16": bf16["ms"], "plain_ms_bf16": bf16["plain_ms"],
-                              "bound_ms_bf16": bf16["bound_ms"]}
+    for entry, key in ((record["kernels"][-2], "composite_bf16"),
+                       (record["kernels"][-1], "halo_bf16")):
+        bf16 = times[key]
+        entry |= {"ms_bf16": bf16["ms"], "plain_ms_bf16": bf16["plain_ms"],
+                  "bound_ms_bf16": bf16["bound_ms"]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,7 +69,7 @@ def test_port_trains_with_jax_blocked():
         "from admm_deconv_tpu_torch.models import build_model\n"
         "from admm_deconv_tpu_torch.ops.kernels import stencil_kernels as sk\n"
         "from admm_deconv_tpu_torch.train import TrainConfig, Trainer\n"
-        "model = build_model('admm_denoiser')\n"
+        "model = build_model('admm_denoiser', device='cpu')\n"
         "model.DenoiserBank_0.iters = 2\n"
         "trainer = Trainer(model, TrainConfig(lr_rate=1e-4, checkpointing=False))\n"
         "state = trainer.init_state(torch.Generator().manual_seed(0))\n"
@@ -116,6 +116,38 @@ def test_port_inference_solvers_run_with_jax_blocked():
         "assert mods == ['jax'], mods\n"
         "for fn in (sk._kernel_fn, sk._composite_kernel_fn, pk._kernel_fn):\n"
         "    assert fn.cache_info().currsize == 0, 'kernel built on CPU'\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_port_tiled_solvers_run_with_jax_blocked():
+    """The tiled slice (``parallel/``) imports without jax; both tiled
+    solvers run on a one-rank CPU mesh, and no kernel is built."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from admm_deconv_tpu_torch.ops.kernels import stencil_kernels as sk\n"
+        "from admm_deconv_tpu_torch.parallel import (\n"
+        "    make_mesh, tiled_composite_tv_deconvolve, tiled_tv_deconvolve)\n"
+        "mesh = make_mesh({'tile': 1}, device_type='cpu')\n"
+        "y = torch.rand(2, 16, 24, 3, generator=torch.Generator().manual_seed(0))\n"
+        "psf = torch.zeros(5, 5); psf[2, :] = 0.2\n"
+        "x = tiled_tv_deconvolve(y, psf=psf, lam=0.01, rho=0.1, iters=4, mesh=mesh)\n"
+        "assert x.shape == y.shape and bool(torch.isfinite(x).all())\n"
+        "x, d = tiled_tv_deconvolve(y, psf=psf, lam=0.01, rho=0.1, iters=8, mesh=mesh,\n"
+        "                           adapt_rho=True, early_stop=True, check_every=4,\n"
+        "                           return_diagnostics=True, state_dtype='bfloat16')\n"
+        "assert int(d.iterations) % 4 == 0\n"
+        "z = tiled_composite_tv_deconvolve(y, psf=psf, x_bounds=(0, 1), iters=4, mesh=mesh)\n"
+        "assert float(z.min()) >= 0 and float(z.max()) <= 1\n"
+        "mods = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "        or m == 'admm_deconv_tpu' or m.startswith('admm_deconv_tpu.')]\n"
+        "assert mods == ['jax'], mods\n"
+        "assert sk._halo_kernel_fn.cache_info().currsize == 0, 'kernel built on CPU'\n"
         "print('ok')\n"
     )
     assert proc.returncode == 0, proc.stderr

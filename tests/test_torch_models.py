@@ -247,15 +247,26 @@ def test_deconv_bank_matches_jax():
 
 def test_build_model():
     cfg = {"use_iso": False, "state_dtype": "bfloat16"}
-    m = tz.build_model("admm_denoiser", cfg)
+    m = tz.build_model("admm_denoiser", cfg, device="cpu")
     assert isinstance(m, tz.AdmmDenoiser) and m.DenoiserBank_0.iso is False
     assert m.DenoiserBank_0.state_dtype == "bfloat16"
-    assert isinstance(tz.build_model("deconv_bank", cfg), tz.DeconvBank)
+    assert isinstance(tz.build_model("deconv_bank", cfg, device="cpu"), tz.DeconvBank)
     for name, cls in (("autoencoder", tz.Autoencoder), ("denoiser_bank", tz.DenoiserBank),
                       ("multistage", tz.MultistageUpDownscale)):
-        assert isinstance(tz.build_model(name), cls)
+        assert isinstance(tz.build_model(name, device="cpu"), cls)
     with pytest.raises(ValueError, match="unknown model"):
-        tz.build_model("nope")
+        tz.build_model("nope", device="cpu")
+
+
+def test_build_model_goes_to_the_card(monkeypatch):
+    """``build_model`` puts the module on the card, as JAX's ``init`` puts
+    the parameters on its default device: with no CUDA device the default
+    raises instead of building on the CPU; ``device="cpu"`` asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="on the CUDA device"):
+        tz.build_model("admm_denoiser")
+    m = tz.build_model("admm_denoiser", device="cpu")
+    assert all(p.device.type == "cpu" for p in m.parameters())
 
 
 def test_init_parameters_is_seeded_and_orthogonal():
