@@ -13,12 +13,15 @@ from admm_deconv_tpu_torch.ops.composite import (
     composite_tv_deconvolve,
     composite_tv_deconvolve_adaptive,
 )
+from admm_deconv_tpu_torch.ops.implicit import tv_deconvolve_implicit
 from admm_deconv_tpu_torch.ops.solver import (
     ADMMDiagnostics,
     ADMMState,
+    anderson_history_bytes,
     solve_auto,
     tv_deconvolve,
     tv_deconvolve_adaptive,
+    tv_deconvolve_anderson,
     tv_objective,
 )
 
@@ -28,9 +31,12 @@ __all__ = [
     "solve_auto",
     "tv_deconvolve",
     "tv_deconvolve_adaptive",
+    "anderson_history_bytes",
+    "tv_deconvolve_anderson",
     "tv_objective",
     "composite_tv_deconvolve",
     "composite_tv_deconvolve_adaptive",
+    "tv_deconvolve_implicit",
     "ADMMState",
     "ADMMDiagnostics",
     "prox",

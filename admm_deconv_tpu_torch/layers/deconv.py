@@ -11,7 +11,9 @@ Forward: project lam/rho onto ``[creg, inf)`` (rho also onto
 gradients flow through their subgradients — run the unrolled solver, add
 the bias, apply the activation.  Gradients flow through the unrolled
 iterations (``remat`` recomputes each one in the backward pass), on the
-card through the fused stencil's forward and backward kernels.
+card through the fused stencil's forward and backward kernels; or, with
+``diff_mode="implicit"``, through the fixed point at O(1) memory
+(``ops/implicit.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
+from admm_deconv_tpu_torch.ops.implicit import tv_deconvolve_implicit
 from admm_deconv_tpu_torch.ops.solver import tv_deconvolve
 
 # Guard against rho -> 0 (tau = lam/rho and C = 1/(...rho...) both blow up).
@@ -73,8 +76,13 @@ class ADMMDeconv(nn.Module):
         gradients; the rest are detached (frozen).
       remat: recompute each unrolled iteration in the backward pass.
       fft_mode, prox_impl, state_dtype: passed to ``tv_deconvolve``.
-      diff_mode: "unroll" (backpropagate through the iterations).
-        "implicit" is not ported yet (ROADMAP Queue 1 item 11) and raises.
+      diff_mode: "unroll" backpropagates through the iterations (the exact
+        gradient of the truncated solver; needed for a trainable rho);
+        "implicit" differentiates the converged fixed point with the
+        implicit function theorem at O(1) memory
+        (:func:`~admm_deconv_tpu_torch.ops.implicit.tv_deconvolve_implicit`;
+        ``remat``, ``prox_impl`` and ``state_dtype`` do not apply to it).
+      bwd_iters: depth of the Neumann adjoint for ``diff_mode="implicit"``.
     """
 
     def __init__(
@@ -93,14 +101,10 @@ class ADMMDeconv(nn.Module):
         prox_impl: str = "auto",
         state_dtype: str | None = None,
         diff_mode: str = "unroll",
+        bwd_iters: int = 30,
     ):
         super().__init__()
-        if diff_mode == "implicit":
-            raise NotImplementedError(
-                "diff_mode='implicit' (tv_deconvolve_implicit) is not ported to "
-                "the PyTorch package yet: ROADMAP Queue 1 item 11"
-            )
-        if diff_mode != "unroll":
+        if diff_mode not in ("unroll", "implicit"):
             raise ValueError(f"diff_mode must be 'unroll' or 'implicit', got {diff_mode!r}")
         kernel_shape = tuple(kernel_shape)
         if len(kernel_shape) not in (0, 2):
@@ -122,6 +126,7 @@ class ADMMDeconv(nn.Module):
         self.prox_impl = prox_impl
         self.state_dtype = state_dtype
         self.diff_mode = diff_mode
+        self.bwd_iters = bwd_iters
 
         self.lam = nn.Parameter(torch.empty(1))
         self.rho = nn.Parameter(torch.empty(1))
@@ -161,18 +166,25 @@ class ADMMDeconv(nn.Module):
         squeeze = x.ndim == 3
         if squeeze:
             x = x[None]
-        out = tv_deconvolve(
-            x,
-            psf=psf,
-            lam=lam,
-            rho=rho,
-            iters=self.iters,
-            prox="iso" if self.iso else "aniso",
-            remat=self.remat,
-            fft_mode=self.fft_mode,
-            prox_impl=self.prox_impl,
-            state_dtype=self.state_dtype,
-        )
+        prox = "iso" if self.iso else "aniso"
+        if self.diff_mode == "implicit":
+            out = tv_deconvolve_implicit(
+                x, psf=psf, lam=lam, rho=rho, iters=self.iters, prox=prox,
+                bwd_iters=self.bwd_iters, fft_mode=self.fft_mode,
+            )
+        else:
+            out = tv_deconvolve(
+                x,
+                psf=psf,
+                lam=lam,
+                rho=rho,
+                iters=self.iters,
+                prox=prox,
+                remat=self.remat,
+                fft_mode=self.fft_mode,
+                prox_impl=self.prox_impl,
+                state_dtype=self.state_dtype,
+            )
         if self.use_bias:
             out = out + self._param("bias")[0]
         out = self.activation(out)
@@ -182,7 +194,7 @@ class ADMMDeconv(nn.Module):
 def ADMMDeconvF1(kernel_shape, iters: int, lam: float, activation: Callable = _identity,
                  **kw) -> ADMMDeconv:
     """Fixed lam; trainable weight/bias/rho.  ``kw``: iso, use_bias, creg,
-    remat, fft_mode, prox_impl, state_dtype."""
+    remat, fft_mode, prox_impl, state_dtype, diff_mode, bwd_iters."""
     if lam <= 0:
         raise ValueError("Parameter lam must be greater than 0")
     return ADMMDeconv(kernel_shape, iters, activation, lam_init=lam, rho_init=None,

@@ -44,6 +44,23 @@ def psf_to_otf(psf: torch.Tensor, image_shape: tuple[int, int]) -> torch.Tensor:
     return torch.fft.rfft2(padded)
 
 
+def psf_to_otf_full(psf: torch.Tensor, image_shape: tuple[int, int]) -> torch.Tensor:
+    """Full-grid OTF (all W bins): ``fft2`` of the centred embedded PSF.
+
+    The complex ``(H, W)`` counterpart of :func:`psf_to_otf` for full
+    complex-to-complex transform paths.
+    """
+    h, w = image_shape
+    kh, kw = psf.shape
+    if kh > h or kw > w:
+        raise ValueError(f"PSF {tuple(psf.shape)} larger than image {image_shape}")
+    ch, cw = psf_center((kh, kw))
+    padded = torch.zeros((h, w), dtype=psf.dtype, device=psf.device)
+    padded[:kh, :kw] = psf
+    padded = torch.roll(padded, shifts=(-ch, -cw), dims=(0, 1))
+    return torch.fft.fft2(padded)
+
+
 def laplacian_spectrum(
     image_shape: tuple[int, int],
     dtype: torch.dtype = torch.float32,

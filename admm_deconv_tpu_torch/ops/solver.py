@@ -1,7 +1,7 @@
 """ADMM TV deconvolution solvers — PyTorch counterpart of
 ``admm_deconv_tpu/ops/solver.py``: the fixed-iteration ``tv_deconvolve``,
-the residual-balanced ``tv_deconvolve_adaptive``, ``solve_auto`` and
-``tv_objective``.
+the residual-balanced ``tv_deconvolve_adaptive``, the Anderson-accelerated
+``tv_deconvolve_anderson``, ``solve_auto`` and ``tv_objective``.
 
 Problem: given blurred/noisy ``y`` and PSF ``h``, solve
 
@@ -51,6 +51,8 @@ from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
     fused_admm_stencil_mixed,
 )
 from admm_deconv_tpu_torch.ops.policy import policy
+from admm_deconv_tpu_torch.utils.precision import fp32_matmuls
+from admm_deconv_tpu_torch.utils.profiling import trace_annotation
 
 # The JAX package's FFT mode names; all compute the same exact transform here.
 _FFT_MODES = (
@@ -600,6 +602,351 @@ def tv_deconvolve_adaptive(
     if return_state:
         return x, diags, state
     return x, diags
+
+
+def anderson_history_bytes(
+    shape: tuple[int, ...], m: int = 5, itemsize: int = 4
+) -> int:
+    """Device-memory footprint of Anderson's history state — two
+    ``(m, N, 4*H*W)`` difference rings (``dF`` and ``dSF``) plus two
+    ``(N, 4*H*W)`` snapshot buffers (previous map output / previous
+    residual), ``2*(m+1)*N*4*H*W`` floats in all — for an input of the given
+    NHWC (or HW/HWC) shape.  Budget ``m`` with this before solving large
+    frames.  Where it does not fit, use
+    :func:`admm_deconv_tpu_torch.parallel.tiled_tv_deconvolve_anderson`,
+    which splits the rings over the tile mesh axis, or let
+    ``tv_deconvolve_anderson(m="auto")`` size the window from the device's
+    memory.
+    """
+    if len(shape) == 2:
+        n, h, w = 1, *shape
+    elif len(shape) == 3:
+        n, (h, w) = shape[2], shape[:2]
+    else:
+        n, h, w = shape[0] * shape[3], shape[1], shape[2]
+    return 2 * (m + 1) * n * 4 * h * w * itemsize
+
+
+def _resolve_anderson_m(m, shape, device: torch.device | None = None) -> int:
+    """Resolve ``m="auto"``: the largest window in [2, 5] whose history
+    state (:func:`anderson_history_bytes`) fits in a quarter of ``device``'s
+    memory.  A CPU tensor (or no device) reports no limit and takes the JAX
+    package's fallback of 16 GiB, so both packages pick the same window
+    there."""
+    if m != "auto":
+        return m
+    if device is not None and device.type == "cuda":
+        limit = torch.cuda.get_device_properties(device).total_memory
+    else:
+        limit = 16 << 30
+    mm = 5
+    while mm > 2 and anderson_history_bytes(shape, mm) > limit // 4:
+        mm -= 1
+    return mm
+
+
+class _AndersonMixer:
+    """Windowed type-II Anderson extrapolation of a fixed-point map on
+    per-image flat states ``(N, D)``, with the per-image decay safeguard.
+
+    The two ``(m, N, D)`` difference rings are written **in place** at slot
+    ``(k-1) mod m``; nothing ever shifts or copies a ring.  The
+    least-squares mixing problem does not depend on column order, so
+    validity is tracked by slot *age* against the per-image count ``cnt`` of
+    non-stale pairs (stale = from before a restart, or never written).
+    Staleness is masked on the small ``(N, m, m)`` Gram and ``(N, m)`` rhs,
+    not on the rings: a zeroed Gram row and column decouples the slot from
+    the solve, whose regularisation diagonal then gives it an exact zero
+    coefficient, so the raw rings feed the correction contraction.
+
+    Ring traffic is the whole cost of Anderson at large frames, so:
+
+    * the second ring stores the sum ``dSF = dS + dF``, which the
+      correction ``(dS + dF) . gamma`` needs; since ``s + f = T(s)`` its
+      slot is the difference of consecutive map outputs ``t_k - t_{k-1}``;
+    * the Gram is carried and refreshed rank-1: only slot ``idx`` changed,
+      so one ``(m, D) x (D, 2)`` contraction of the ``dF`` ring against the
+      probe ``[dF_new, f]`` gives the new Gram row/column and the whole rhs
+      ``dF . f`` in one pass.
+
+    The contractions are plain cuBLAS products on strided views of the
+    rings (no copy) at full fp32; the probe contraction is split over
+    ``chunks`` pieces of D (:meth:`_probe_ring` says why).  ``reduce`` (the
+    H-tiled solver's sum over the tile group, in place on an ``(N, 2m+1)``
+    tensor) makes the Gram row, the rhs and the squared residual global in
+    ONE collective, so every tile solves the same mixing problem and takes
+    the same safeguard decision.
+    """
+
+    def __init__(self, n, d, m, aa_reg, safeguard_factor, dtype, device, *, chunks: int,
+                 reduce=None):
+        self.m, self.aa_reg, self.safeguard_factor = m, aa_reg, safeguard_factor
+        self.reduce = reduce
+        self.chunks = chunks  # split of D in the probe contraction: a divisor of D
+        self.dSF = torch.zeros((m, n, d), dtype=dtype, device=device)
+        self.dF = torch.zeros((m, n, d), dtype=dtype, device=device)
+        self.gram = torch.zeros((n, m, m), dtype=dtype, device=device)
+        self.t_prev = torch.zeros((n, d), dtype=dtype, device=device)
+        self.f_prev = torch.zeros((n, d), dtype=dtype, device=device)
+        self.cnt = torch.zeros((n,), dtype=torch.int32, device=device)
+        self.k_acc = torch.zeros((n,), dtype=dtype, device=device)
+        self.res0 = None  # the first iteration's residual norm
+        self.eye = torch.eye(m, dtype=dtype, device=device)
+        slot = torch.arange(m, device=device)
+        # ages[idx, j]: the age of slot j (1 = newest) when slot idx was
+        # written last, ``(k - 1 - j) mod m + 1``.
+        self.ages = (slot[:, None] - slot[None, :]) % m + 1
+
+    def _probe_ring(self, probe: torch.Tensor) -> torch.Tensor:
+        """``einsum("knd,njd->nkj", dF, probe)``: the ``dF`` ring against the
+        ``(N, 2, D)`` probe, ``(N, m, 2)``.
+
+        As one batched product per image this is N tall-skinny
+        ``(m x D) . (D x 2)`` problems, which cuBLAS runs on N thread blocks
+        (44 ms a call for 12 images of D = 8.3 M on an H100, fifty times the
+        ring's read time; 1.1 ms split over H chunks: ``chip_smoke.py``'s
+        probe-contraction line).  So D is cut into ``chunks`` pieces that join the
+        batch axis (strided views of the ring, no copy) and the partial
+        products are summed: the same contraction, summed in another order.
+        """
+        m, n, d = self.dF.shape
+        c = self.chunks
+        ring = self.dF.view(m, n * c, d // c).permute(1, 0, 2)  # (N*c, m, D/c)
+        cols = probe.view(2, n * c, d // c).permute(1, 2, 0)  # (N*c, D/c, 2)
+        return torch.bmm(ring, cols).view(n, c, m, 2).sum(dim=1)
+
+    def mix(self, k: int, s_flat: torch.Tensor, t_flat: torch.Tensor):
+        """The ``k``-th outer step: from the state ``s`` and its map output
+        ``t = G(s)`` return ``(s_next, res)``: the extrapolated (or, where
+        the safeguard refuses, the plain) next state and the per-image
+        fixed-point residual norm ``||t - s||``."""
+        m = self.m
+        idx = (k - 1) % m  # at k = 0 slot m-1 gets garbage that is never valid
+        with trace_annotation("admm/aa_ring"):
+            f = t_flat - s_flat
+            torch.sub(t_flat, self.t_prev, out=self.dSF[idx])
+            new_df = torch.sub(f, self.f_prev, out=self.dF[idx])
+        if k >= 1:
+            self.cnt = torch.clamp(self.cnt + 1, max=m)
+        valid = self.ages[idx][None, :] <= self.cnt[:, None]  # (N, m)
+        with trace_annotation("admm/aa_mix"), fp32_matmuls():
+            probe = torch.stack([new_df, f])  # (2, N, D)
+            red = torch.empty((f.shape[0], 2 * m + 1), dtype=f.dtype, device=f.device)
+            red[:, :2 * m] = self._probe_ring(probe).flatten(1)
+            red[:, 2 * m] = torch.linalg.vector_norm(f, dim=-1) ** 2
+            if self.reduce is not None:
+                self.reduce(red)
+            rv = red[:, :2 * m].unflatten(1, (m, 2))
+            res = torch.sqrt(red[:, 2 * m])
+            if self.res0 is None:
+                self.res0 = res
+            row = rv[:, :, 0]  # dF . dF[idx]: the refreshed Gram row/column
+            self.gram[:, idx, :] = row
+            self.gram[:, :, idx] = row
+            g = torch.where(valid[:, :, None] & valid[:, None, :], self.gram, 0.0)
+            trace = g.diagonal(dim1=-2, dim2=-1).sum(-1)
+            g = g + self.aa_reg * (trace[:, None, None] + 1.0) * self.eye
+            rhs = torch.where(valid, rv[:, :, 1], 0.0)
+            # solve_ex: no error check, so no host sync (as jnp.linalg.solve,
+            # which does not raise either; the diagonal keeps g regular).
+            gamma = torch.linalg.solve_ex(g, rhs[..., None])[0][..., 0]  # (N, m)
+            s_aa = t_flat - torch.bmm(
+                gamma[:, None, :], self.dSF.permute(1, 0, 2)
+            )[:, 0]  # "knd,nk->nd"
+
+        # Per-image decay safeguard (no extra map evaluations): extrapolate
+        # while the residuals keep decaying; an image that blows up takes
+        # its plain step and restarts its window (cnt = 0).
+        bound = self.safeguard_factor * self.res0 * (self.k_acc + 1.0) ** -(1.0 + 1e-6)
+        take = (self.cnt >= 1) & (res <= bound)
+        self.k_acc = torch.where(take, self.k_acc + 1.0, self.k_acc)
+        self.cnt = torch.where(take, self.cnt, 0)
+        self.t_prev, self.f_prev = t_flat, f
+        return torch.where(take[:, None], s_aa, t_flat), res
+
+
+def _refuse_grad(name, *args):
+    """The Anderson solvers write their history in place and carry no
+    gradient: refuse an input that asks for one instead of silently
+    returning a constant."""
+    if torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args
+    ):
+        raise ValueError(
+            f"{name} is an inference path and is not differentiable: detach the "
+            f"inputs (or call it under torch.no_grad()), and use tv_deconvolve or "
+            f"tv_deconvolve_implicit where a gradient is needed"
+        )
+
+
+def _check_anderson_args(name, m, iters, aa_interval):
+    if m < 1:
+        raise ValueError(f"Anderson window m must be >= 1, got {m}")
+    if iters < 2:
+        raise ValueError(f"{name} needs iters >= 2")
+    if aa_interval < 1 or (iters - 1) % aa_interval != 0:
+        raise ValueError(
+            f"aa_interval ({aa_interval}) must be >= 1 and divide "
+            f"iters - 1 ({iters - 1})"
+        )
+
+
+def tv_deconvolve_anderson(
+    y: torch.Tensor,
+    psf: torch.Tensor | None = None,
+    lam=0.1,
+    rho=1.0,
+    iters: int = 100,
+    prox: str | Callable = "aniso",
+    x_bounds: tuple[float, float] | None = None,
+    m: int | str = 5,
+    aa_reg: float = 1e-10,
+    safeguard_factor: float = 1e6,
+    early_stop: bool = False,
+    eps_abs: float = 1e-4,
+    eps_rel: float = 1e-3,
+    aa_interval: int = 1,
+    fft_mode: str = "auto",
+    prox_impl: str = "auto",
+):
+    """ADMM with type-II Anderson acceleration of the (z, u) fixed point.
+
+    The ADMM iteration is a fixed-point map ``s -> T(s)`` on
+    ``s = (zx, zy, ux, uy)`` (equivalent to Douglas-Rachford splitting), and
+    Anderson extrapolation over a window of the last ``m`` residual
+    differences reaches a given residual in fewer iterations.  Mixing
+    coefficients are solved **per image** (batched ``(m, m)`` least
+    squares), so images stay independent exactly as in the plain solver.
+
+    Safeguarding costs no extra map evaluations: an extrapolated candidate
+    is taken only while the per-image residual norm stays below
+    ``safeguard_factor * ||f_0|| * (k_acc + 1)^-(1+1e-6)`` (the decay
+    condition of Zhang-O'Donoghue-Boyd type-I safeguarding); a violating
+    image falls back to its plain ADMM step and restarts its window.
+
+    ``early_stop=True`` adds Boyd-style per-image stopping (``eps_abs`` /
+    ``eps_rel``, the criteria of :func:`tv_deconvolve_adaptive`) with
+    ``iters`` as the cap; the host reads the count of unfinished images once
+    per outer step.
+
+    ``aa_interval=k > 1`` applies the extrapolation to ``G = T^k``: one
+    ring write, rank-1 Gram refresh and mixing per k ADMM iterations.  With
+    ``k > 2``, a named prox and ``prox_impl`` "auto"/"pallas", the ``k - 2``
+    leading iterations of each block run the q-carry loop through the fused
+    stencil kernel (rho is fixed, so it is exact), and the last two the
+    full-state form, so the dual residual sees a true consecutive-z pair.
+    ``iters - 1`` must divide by ``aa_interval``.
+
+    ``m`` is the window, or "auto" for the largest of 2..5 whose history
+    (:func:`anderson_history_bytes`) fits a quarter of the device's memory.
+    ``rho`` is fixed for the whole solve.  Every ``fft_mode`` name computes
+    the exact ``torch.fft`` path.  ``prox_impl`` "auto"/"pallas" with a
+    named prox runs each map step's prox + dual update as the prox-dual
+    kernel on a CUDA tensor.  An inference path: an input that requires a
+    gradient raises.
+
+    Returns ``(x, ADMMDiagnostics)``: ``s_norm`` is the fixed-point residual
+    norm ``||T(s) - s||``, ``r_norm`` the primal residual, both of the last
+    outer step; ``iterations`` is ``iters``, or
+    ``outer_steps * aa_interval + 1`` under ``early_stop``.
+    """
+    prox_impl = _check_modes(fft_mode, prox_impl)
+    y = _input_tensor(y)
+    m = _resolve_anderson_m(m, tuple(y.shape), y.device)
+    _check_anderson_args("tv_deconvolve_anderson", m, iters, aa_interval)
+    _refuse_grad("tv_deconvolve_anderson", y, psf, lam, rho)
+    with torch.no_grad():
+        return _anderson_solve(
+            y, psf, lam, rho, iters, prox, x_bounds, m, aa_reg, safeguard_factor,
+            early_stop, eps_abs, eps_rel, aa_interval, prox_impl,
+        )
+
+
+def _anderson_solve(y, psf, lam, rho, iters, prox, x_bounds, m, aa_reg, safeguard_factor,
+                    early_stop, eps_abs, eps_rel, aa_interval, prox_impl):
+    _, orig_shape = _normalize_input(y)
+    y_f, b_f, denom_h, lap, lam_f, rho_f, (b, h, w, c) = _prepare(y, psf, lam, rho)
+    dtype, device = y_f.dtype, y_f.device
+    tau = lam_f / rho_f
+    prox_step = _make_prox_step(prox, prox_impl)
+    c_spec = _form_cspec(denom_h, lap, rho_f)
+    n = b * c
+    d = 4 * h * w  # per-image state: the (zx, zy, ux, uy) planes
+
+    def solve(q):
+        x = _solve_spectral(b_f, c_spec, rho_f, q, h, w)
+        if x_bounds is not None:
+            x = torch.clamp(x, x_bounds[0], x_bounds[1])
+        return x
+
+    def one_step(zx, zy, ux, uy):
+        dxx, dxy = grad2d(solve(grad2d_adjoint(zx - ux, zy - uy)))
+        return (*prox_step(dxx, dxy, ux, uy, tau), dxx, dxy)
+
+    # The fused stencil serves the leading aa_interval - 2 steps of a block.
+    # The JAX gate also asks whether its kernel has a row block for (h, w);
+    # the CUDA kernel takes every shape, so the request alone decides.
+    mode = _kernel_mode(prox, prox_impl)
+    tau_kernel = _tau_for_kernel(tau)
+    use_fast_inner = aa_interval > 2 and mode is not None and tau_kernel is not None
+
+    def g_map(s):
+        """``G(s) = T^aa_interval(s)`` on ``s = (N, 4, H, W)``: returns
+        ``(G(s), r_norm of the last step, the z pair before it)``."""
+        zx, zy, ux, uy = s.unbind(1)
+        if use_fast_inner:
+            q = grad2d_adjoint(zx - ux, zy - uy)
+            for _ in range(aa_interval - 2):
+                q, ux, uy = fused_admm_stencil(solve(q), ux, uy, tau_kernel, mode=mode)
+            # One full-state step from the (q, u) carry brings z back.
+            dxx, dxy = grad2d(solve(q))
+            zx, zy, ux, uy = prox_step(dxx, dxy, ux, uy, tau)
+        else:
+            for _ in range(aa_interval - 1):
+                zx, zy, ux, uy = one_step(zx, zy, ux, uy)[:4]
+        zpx, zpy = zx, zy
+        zx, zy, ux, uy, dxx, dxy = one_step(zx, zy, ux, uy)
+        r = torch.sqrt(torch.sum((dxx - zx) ** 2 + (dxy - zy) ** 2, dim=(-2, -1)))
+        return torch.stack([zx, zy, ux, uy], dim=1), r, zpx, zpy
+
+    mixer = _AndersonMixer(n, d, m, aa_reg, safeguard_factor, dtype, device, chunks=h)
+    s = torch.zeros((n, 4, h, w), dtype=dtype, device=device)
+    rho_v = torch.broadcast_to(rho_f.reshape(-1), (n,))
+    sqrt_dim = torch.sqrt(torch.tensor(2.0 * h * w, dtype=dtype, device=device))
+    outer_cap = (iters - 1) // aa_interval
+    k = 0
+    while k < outer_cap:
+        with trace_annotation("admm/aa_map"):
+            t, r_norm, zpx, zpy = g_map(s)
+        s_next, fp_res = mixer.mix(k, s.reshape(n, d), t.reshape(n, d))
+        s = s_next.reshape(n, 4, h, w)
+        k += 1
+        if early_stop:
+            # Boyd stopping on the map's own output t, exactly as in
+            # tv_deconvolve_adaptive: consecutive z's for the dual residual.
+            tzx, tzy, tux, tuy = t.unbind(1)
+            dz = grad2d_adjoint(tzx - zpx, tzy - zpy)
+            s_norm = rho_v * torch.sqrt(torch.sum(dz * dz, dim=(-2, -1)))
+            z_norm = torch.sqrt(torch.sum(tzx ** 2 + tzy ** 2, dim=(-2, -1)))
+            dual = grad2d_adjoint(tux, tuy)
+            dual_norm = rho_v * torch.sqrt(torch.sum(dual * dual, dim=(-2, -1)))
+            eps_pri = sqrt_dim * eps_abs + eps_rel * z_norm
+            eps_dual = sqrt_dim * eps_abs + eps_rel * dual_norm
+            done = (r_norm <= eps_pri) & (s_norm <= eps_dual)
+            if int(torch.sum(~done)) == 0:  # the loop's one host read
+                break
+    iters_run = k * aa_interval + 1 if early_stop else iters
+    # One final solve gives the output image from the accelerated state: the
+    # same count of solves as tv_deconvolve (iters - 1 in the loop, plus 1).
+    zx, zy, ux, uy = s.unbind(1)
+    x = solve(grad2d_adjoint(zx - ux, zy - uy))
+    diags = ADMMDiagnostics(
+        r_norm=r_norm,
+        s_norm=fp_res,
+        iterations=torch.tensor(iters_run, device=device),
+        rho=rho_v,
+    )
+    return _unfold(x, b, c).reshape(orig_shape), diags
 
 
 def solve_auto(

@@ -4,8 +4,8 @@ Counterpart of ``admm_deconv_tpu/parallel`` on ``torch.distributed``: named
 meshes (``mesh.py``), process-group set-up (``distributed.py``) and the exact
 H-tiled solvers (``tiling.py``) with a transpose-based distributed rFFT2,
 halo-exchange stencils (kernel Q2-4 on the card) and all-reduced residual
-norms for shared rho adaptation.  ``tiled_tv_deconvolve_anderson`` waits for
-the single-device Anderson solver.
+norms for shared rho adaptation and, in the Anderson solver, an all-reduced
+Gram for shared mixing coefficients.
 """
 
 from admm_deconv_tpu_torch.parallel import distributed
@@ -13,6 +13,7 @@ from admm_deconv_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batc
 from admm_deconv_tpu_torch.parallel.tiling import (
     tiled_composite_tv_deconvolve,
     tiled_tv_deconvolve,
+    tiled_tv_deconvolve_anderson,
 )
 
 __all__ = [
@@ -21,5 +22,6 @@ __all__ = [
     "replicate",
     "tiled_composite_tv_deconvolve",
     "tiled_tv_deconvolve",
+    "tiled_tv_deconvolve_anderson",
     "distributed",
 ]

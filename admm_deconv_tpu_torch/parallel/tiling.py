@@ -1,7 +1,8 @@
 """H-tiled ADMM deconvolution over a mesh of ranks (exact), on ``torch.distributed``.
 
 Counterpart of ``admm_deconv_tpu/parallel/tiling.py``'s
-``tiled_tv_deconvolve`` and ``tiled_composite_tv_deconvolve``.  Each image's
+``tiled_tv_deconvolve``, ``tiled_composite_tv_deconvolve`` and
+``tiled_tv_deconvolve_anderson``.  Each image's
 H axis is split over the mesh's ``tile`` axis and, with ``data_axis_name``,
 the folded batch*channel planes over a second axis (a 2-D data x tile
 mesh).  Each iteration runs distributed:
@@ -50,17 +51,21 @@ from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import fused_admm_stencil
 from admm_deconv_tpu_torch.ops.solver import (
     ADMMDiagnostics,
     ADMMState,
+    _AndersonMixer,
     _as_dtype,
+    _check_anderson_args,
     _check_modes,
     _fold,
     _fold_param,
     _kernel_mode,
     _make_prox_step,
     _normalize_input,
+    _refuse_grad,
     _unfold,
 )
 from admm_deconv_tpu_torch.parallel.distributed import all_gather_cat
 from admm_deconv_tpu_torch.parallel.mesh import axis_size
+from admm_deconv_tpu_torch.utils.profiling import trace_annotation
 
 # The JAX tiled solver's fft_mode names ("auto" resolves to "xla").
 _TILED_FFT_MODES = ("xla", "fold", "fold1", "fold_precise")
@@ -595,3 +600,158 @@ def tiled_composite_tv_deconvolve(
     x = x_from_q(q, rho1_l, c_cols)
     z2 = _l1_box(x + u2, tau_l1, x_bounds)
     return _unfold(tiles.gather_planes(z2), b, c).reshape(orig_shape)
+
+
+@torch.no_grad()
+def _tiled_anderson_solve(tiles, y_tile, psf, lam, rho, h, w, iters, prox, x_bounds, m, aa_reg,
+                          safeguard_factor, early_stop, eps_abs, eps_rel, aa_interval, mode):
+    """The per-tile Anderson loop: returns the local ``x``, the per-image
+    ``r_norm`` and fixed-point residual, and the iterations run."""
+    wp = -(-(w // 2 + 1) // tiles.t) * tiles.t
+    c_of, x_from_q = _x_update(tiles, y_tile, psf, h, w, wp, x_bounds)
+    nl, ht = y_tile.shape[:2]
+    dtype, device = y_tile.dtype, y_tile.device
+    lam_l, rho_l = lam[:, None, None], rho[:, None, None]
+    tau, tau_vec = lam_l / rho_l, lam / rho
+    c_cols = c_of(rho_l)
+    # The full-state steps keep the plain prox composition, as the JAX tiled
+    # solver does; the kernel serves the leading steps of a block.
+    prox_step = _make_prox_step(prox, "xla")
+    use_fast_inner = aa_interval > 2 and mode is not None
+    d_loc = 4 * ht * w  # per-image LOCAL state size: the history is tile-split
+
+    def one_step(zx, zy, ux, uy):
+        x = x_from_q(tiles.grad2d_adjoint(zx - ux, zy - uy), rho_l, c_cols)
+        dxx, dxy = tiles.grad2d(x)
+        return (*prox_step(dxx, dxy, ux, uy, tau), dxx, dxy)
+
+    def g_map(s):
+        """``G = T^aa_interval`` on the tile: ``(G(s), this tile's share of
+        r_norm^2, the z pair before the last step)``."""
+        zx, zy, ux, uy = s.unbind(1)
+        if use_fast_inner:
+            q = tiles.grad2d_adjoint(zx - ux, zy - uy)
+            for _ in range(aa_interval - 2):
+                x = x_from_q(q, rho_l, c_cols)
+                q, ux, uy = fused_admm_stencil_halo(
+                    x, ux, uy, *tiles.halo_exchange(x, ux, uy), tau_vec, mode=mode
+                )
+            dxx, dxy = tiles.grad2d(x_from_q(q, rho_l, c_cols))
+            zx, zy, ux, uy = prox_step(dxx, dxy, ux, uy, tau)
+        else:
+            for _ in range(aa_interval - 1):
+                zx, zy, ux, uy = one_step(zx, zy, ux, uy)[:4]
+        zpx, zpy = zx, zy
+        zx, zy, ux, uy, dxx, dxy = one_step(zx, zy, ux, uy)
+        r2 = torch.sum((dxx - zx) ** 2 + (dxy - zy) ** 2, dim=(-2, -1))
+        return torch.stack([zx, zy, ux, uy], dim=1), r2, zpx, zpy
+
+    def tile_sum(a):
+        dist.all_reduce(a, group=tiles.group)
+
+    mixer = _AndersonMixer(nl, d_loc, m, aa_reg, safeguard_factor, dtype, device,
+                           reduce=tile_sum, chunks=ht)
+    s = torch.zeros((nl, 4, ht, w), dtype=dtype, device=device)
+    sqrt_dim = torch.sqrt(torch.tensor(2.0 * h * w, dtype=dtype, device=device))
+    outer_cap = (iters - 1) // aa_interval
+    k = 0
+    while k < outer_cap:
+        with trace_annotation("admm/aa_map"):
+            t, r2, zpx, zpy = g_map(s)
+        s_next, fp_res = mixer.mix(k, s.reshape(nl, d_loc), t.reshape(nl, d_loc))
+        s = s_next.reshape(nl, 4, ht, w)
+        k += 1
+        if early_stop:
+            # The four residual sums ride one all-reduce over the tile
+            # group; the unfinished count one over the data group.
+            tzx, tzy, tux, tuy = t.unbind(1)
+            dz = tiles.grad2d_adjoint(tzx - zpx, tzy - zpy)
+            dual = tiles.grad2d_adjoint(tux, tuy)
+            sums = torch.stack([
+                r2,
+                torch.sum(dz * dz, dim=(-2, -1)),
+                torch.sum(tzx ** 2 + tzy ** 2, dim=(-2, -1)),
+                torch.sum(dual * dual, dim=(-2, -1)),
+            ])
+            tile_sum(sums)
+            r_norm = torch.sqrt(sums[0])
+            s_norm = rho * torch.sqrt(sums[1])
+            eps_pri = sqrt_dim * eps_abs + eps_rel * torch.sqrt(sums[2])
+            eps_dual = sqrt_dim * eps_abs + eps_rel * rho * torch.sqrt(sums[3])
+            count = torch.sum(~((r_norm <= eps_pri) & (s_norm <= eps_dual)))
+            if tiles.d_group is not None:
+                dist.all_reduce(count, group=tiles.d_group)
+            if int(count) == 0:  # the loop's one host read
+                break
+    if not early_stop:
+        # Nothing in the loop reads r_norm: its sum is reduced once, here.
+        tile_sum(r2)
+        r_norm = torch.sqrt(r2)
+    zx, zy, ux, uy = s.unbind(1)
+    x = x_from_q(tiles.grad2d_adjoint(zx - ux, zy - uy), rho_l, c_cols)
+    return x, r_norm, fp_res, k * aa_interval + 1 if early_stop else iters
+
+
+def tiled_tv_deconvolve_anderson(
+    y,
+    psf=None,
+    lam=0.1,
+    rho=1.0,
+    iters: int = 100,
+    prox: str | Callable = "aniso",
+    x_bounds: tuple[float, float] | None = None,
+    m: int = 5,
+    aa_reg: float = 1e-10,
+    safeguard_factor: float = 1e6,
+    early_stop: bool = False,
+    eps_abs: float = 1e-4,
+    eps_rel: float = 1e-3,
+    aa_interval: int = 1,
+    mesh: DeviceMesh | None = None,
+    axis_name: str = "tile",
+    data_axis_name: str | None = None,
+    fft_mode: str = "auto",
+    prox_impl: str = "auto",
+):
+    """Anderson-accelerated ADMM with each image's H axis split over ``mesh``.
+
+    The distributed twin of
+    :func:`~admm_deconv_tpu_torch.ops.solver.tv_deconvolve_anderson` (the
+    same windowed type-II extrapolation, per-image mixing and decay
+    safeguard): the fixed-point state, both ``(m, N, 4*Ht*W)`` difference
+    rings and the snapshots live tile-local, which divides Anderson's
+    dominant memory cost by the tile count, while the per-image Gram row,
+    rhs and squared residual are summed over the tile group in one
+    all-reduce per outer step, so every tile applies the same mixing
+    coefficients and takes the same safeguard decision.
+
+    Same arguments and calling contract as :func:`tiled_tv_deconvolve`;
+    ``rho`` is fixed for the whole solve.  ``aa_interval=k > 1``
+    extrapolates ``G = T^k``; with ``prox_impl`` "pallas"/"auto", a named
+    prox and ``k > 2`` the leading ``k - 2`` steps of each block run the
+    q-carry loop through kernel Q2-4.  The full-state steps use the plain
+    prox composition.  Under ``early_stop`` the count of unfinished images
+    is summed over the data group and read on the host once per outer step.
+
+    Returns the whole ``x`` (input shape) and ``ADMMDiagnostics``
+    (``s_norm`` = the fixed-point residual) on every rank.
+    """
+    fft_mode, prox_impl = _check_fft_mode(fft_mode, prox_impl)
+    if mesh is None:
+        raise ValueError("tiled_tv_deconvolve_anderson requires a mesh")
+    _check_anderson_args("tiled_tv_deconvolve_anderson", m, iters, aa_interval)
+    _refuse_grad("tiled_tv_deconvolve_anderson", y, psf, lam, rho)
+    tiles, y_f, psf, orig_shape, (b, h, w, c) = _setup(y, psf, mesh, axis_name, data_axis_name)
+    lam_v, rho_v = (_image_param(tiles, p, b, c, y_f) for p in (lam, rho))
+    x, r_norm, fp_res, iterations = _tiled_anderson_solve(
+        tiles, _local(tiles, y_f, h // tiles.t), psf, lam_v, rho_v, h, w, iters, prox,
+        x_bounds, m, aa_reg, safeguard_factor, early_stop, eps_abs, eps_rel, aa_interval,
+        _kernel_mode(prox, prox_impl),
+    )
+    diags = ADMMDiagnostics(
+        r_norm=tiles.gather_images(r_norm),
+        s_norm=tiles.gather_images(fp_res),
+        iterations=torch.tensor(iterations, device=y_f.device),
+        rho=tiles.gather_images(rho_v),
+    )
+    return _unfold(tiles.gather_planes(x), b, c).reshape(orig_shape), diags

@@ -1,4 +1,4 @@
-"""Full-fp32 convolutions on the card.
+"""Full-fp32 convolutions and matrix products on the card.
 
 cuDNN runs float32 convolutions in TF32 by default
 (``torch.backends.cudnn.allow_tf32`` is True), which keeps about three
@@ -30,3 +30,18 @@ def fp32_convs():
         yield
     finally:
         cudnn.allow_tf32 = before
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    """Run cuBLAS matrix products (``torch.bmm``, ``einsum``) at full fp32
+    (no TF32) inside the block, whatever the caller has set; the Anderson
+    solvers' Gram and correction contractions are differences of nearly
+    equal vectors and lose their mixing coefficients at TF32's ten bits."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = before

@@ -1,4 +1,9 @@
-"""Carry a solver warm-start state between the JAX package and this port.
+"""Solver warm-start state: persistence, and carrying it between the JAX
+package and this port.
+
+:func:`save_solver_state` / :func:`load_solver_state` write and read the
+JAX package's ``.npz`` (one array per :class:`ADMMState` field name), so a
+file written by either package loads in the other.
 
 An :class:`ADMMState` is five ``(B*C, H, W)`` plane stacks with the same
 meaning in both packages, so numpy arrays carry it across: a JAX
@@ -10,6 +15,7 @@ meaning in both packages, so numpy arrays carry it across: a JAX
 
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 import numpy as np
@@ -34,3 +40,16 @@ def state_from_numpy(arrays, device: torch.device | str = "cuda") -> ADMMState:
 def state_to_numpy(state: ADMMState) -> dict[str, np.ndarray]:
     """Field name -> host numpy array for every plane stack of ``state``."""
     return {f: getattr(state, f).detach().cpu().numpy() for f in ADMMState._fields}
+
+
+def save_solver_state(path: str, state: ADMMState) -> None:
+    """Persist an :class:`ADMMState` to an ``.npz`` file."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **state_to_numpy(state))
+
+
+def load_solver_state(path: str, device: torch.device | str = "cuda") -> ADMMState:
+    """Load an :class:`ADMMState` saved by :func:`save_solver_state` (of
+    either package) onto ``device``, the card by default."""
+    with np.load(path) as data:
+        return state_from_numpy(data, device=device)

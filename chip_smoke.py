@@ -48,6 +48,8 @@ Phases, in order; any failure raises and exits non-zero:
    tiled_tile1_1080p (fp32 and bf16 state) and
    tiled_adaptive_tile1_1080p_check8 rows, the 4K frame and the tiled
    composite, each beside the single-device solver on the same inputs;
+   ``tiled_tv_deconvolve_anderson`` (every outer step, and every 8th with
+   the tile-halo kernel between) beside ``tv_deconvolve_anderson``;
    the blocks scenario's quality floor; a profile of the 1080p tiled solve
    (collectives, halo gather and re-shard copies against the single-device
    solve); the tile-halo kernel alone against its plain twin and floor;
@@ -65,7 +67,22 @@ Phases, in order; any failure raises and exits non-zero:
 13. kernel times: the three stencil kernels and their plain versions at
     the TV layer's 6 planes of 1080x1920;
 14. profile: device time by kernel and idle share for one flagship step and
-    one TV-layer step.
+    one TV-layer step;
+15. Anderson acceleration (``tv_deconvolve_anderson``): ``bench_suite.py``'s
+    anderson_256 row (the fewest of 20/30/40/50/75/100 Anderson iterations
+    that reach 100 plain iterations' residual), anderson_1080p_overhead
+    (iterations/s beside ``tv_deconvolve``, peak memory beside
+    ``anderson_history_bytes``) and the ttq_1080p ``early_stop`` rows
+    (``m=5`` and ``m=5, aa_interval=8``) beside the adaptive solver, the
+    kernel path against ``prox_impl="xla"``; a profile of one 1080p solve
+    (runs before the tiled phase; the tiled phase drives
+    ``tiled_tv_deconvolve_anderson`` beside it);
+16. implicit differentiation: the card's ``tv_deconvolve_implicit`` gradients
+    against the CPU's on a small seeded problem; the 1080p TV-layer step
+    with ``diff_mode="implicit"`` beside the unrolled remat step, ms/step
+    and peak memory;
+17. utils on the card: solver-state save/load, ``profile_trace``, and which
+    paths run under ``deterministic_mode()``.
 
 Every path zeroes the kernels' launch counters just before it runs and
 checks them just after.
@@ -111,8 +128,12 @@ CSRC = "admm_deconv_tpu_torch/csrc"
 TPU_KERNELS = "admm_deconv_tpu/ops/pallas/stencil_kernels.py"
 TPU_PROX_KERNELS = "admm_deconv_tpu/ops/pallas/prox_kernels.py"
 # The prox-dual kernel's shapes (the last with a scalar tau only: its
-# leading axes are not planes) and the composite kernel's.
-PROX_DUAL_SHAPES = [(12, 1080, 1920), *INFERENCE_SHAPES, (3, 37, 101)]
+# leading axes are not planes) and the composite kernel's.  The 6-plane
+# stacks are the implicit layer's: the 1080p TV-layer step and the small
+# problem whose gradients are held against the CPU's.
+IMPLICIT_GRAD_SHAPE = (2, 48, 64, 3)
+PROX_DUAL_SHAPES = [(12, 1080, 1920), *INFERENCE_SHAPES, (3, 37, 101), (6, 1080, 1920),
+                    (IMPLICIT_GRAD_SHAPE[0] * IMPLICIT_GRAD_SHAPE[3], *IMPLICIT_GRAD_SHAPE[1:3])]
 PROX_DUAL_SCALAR_SHAPES = [(2, 3, 5, 7)]
 COMPOSITE_SHAPES = [(12, 1080, 1920), *INFERENCE_SHAPES, (3, 37, 101), (30, 112, 112)]
 # The tile-halo kernel's tile stacks: the 1080p batch-4 solve and the 4K
@@ -133,6 +154,9 @@ TTQ = {"ttq_1080p": ((4, 27, 48, 3), 40, 1e-4, 1e-3, 200),
 TTQ_REPEATS, CHECK_EVERY = 3, 8
 COMPOSITE_KW = {"lam_tv": LAM, "lam_l1": 0.002, "rho1": RHO, "rho2": RHO,
                 "x_bounds": (0.0, 1.0)}
+# bench_suite.py's Anderson rows: the iteration ladder of anderson_256, the
+# window, and the every-k mixing interval of the ttq rows.
+ANDERSON_LADDER, ANDERSON_M, AA_INTERVAL = (20, 30, 40, 50, 75, 100), 5, 8
 # H100 SXM data sheet: HBM rate and fp32 (non-tensor-core) peak, for bounds.
 HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
 # bench.py's flagship step and bench_suite.py's 1080p TV-layer step.
@@ -1076,11 +1100,13 @@ def phase_tiled(dev) -> dict:
         peak_snr,
         tv_deconvolve,
         tv_deconvolve_adaptive,
+        tv_deconvolve_anderson,
     )
     from admm_deconv_tpu_torch.parallel import (
         make_mesh,
         tiled_composite_tv_deconvolve,
         tiled_tv_deconvolve,
+        tiled_tv_deconvolve_anderson,
     )
 
     mesh = make_mesh({"tile": 1})
@@ -1187,6 +1213,38 @@ def phase_tiled(dev) -> dict:
     floor = QUALITY_FLOORS["tv_deconvolve fp32"]
     print(f"[tiled] blocks scenario, 100 iterations: PSNR {db:.5f} dB (floor {floor})")
     check(db >= floor, f"tiled blocks PSNR {db} below {floor}")
+
+    # The tiled Anderson solver beside the single-device one: every outer
+    # step, and every 8th (6 Q2-4 launches a block).
+    for label, akw, halo in (
+            (f"tiled anderson m={ANDERSON_M}", {"iters": BENCH_ITERS}, 0),
+            (f"tiled anderson m={ANDERSON_M} aa_interval={AA_INTERVAL}",
+             {"iters": BENCH_ITERS - 1, "aa_interval": AA_INTERVAL},
+             (AA_INTERVAL - 2) * ((BENCH_ITERS - 2) // AA_INTERVAL))):
+        akw = {**kw, "m": ANDERSON_M, **akw}
+        reset_counts()
+        tiled_tv_deconvolve_anderson(y, mesh=mesh, **akw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expect_counts(stencil_halo=halo)
+        check(counts == want, f"{label} launches {counts} != {want}")
+        sec_t, res_t = timed_solves(
+            lambda v: tiled_tv_deconvolve_anderson(v, mesh=mesh, **akw), y, TTQ_REPEATS)
+        sec_s, res_s = timed_solves(lambda v: tv_deconvolve_anderson(v, **akw), y, TTQ_REPEATS)
+        (xt, dt), (xs, ds) = res_t[0], res_s[0]
+        check(x_ok(xt, y) and x_ok(xs, y), f"{label} outputs")
+        dx = float((xt - xs).abs().max())
+        dr = float(((dt.r_norm - ds.r_norm).abs() / ds.r_norm).max())
+        n_it = akw["iters"]
+        print(f"[tiled] {label}, {n_it} iterations: tiled T=1 {n_it / sec_t:.2f} it/s, single "
+              f"device {n_it / sec_s:.2f} it/s (median of {TTQ_REPEATS} fresh inputs): "
+              f"{sec_s / sec_t:.3f}x; iterations {int(dt.iterations)} / {int(ds.iterations)}; "
+              f"max|x_tiled - x_single| {dx:.3e} (bound 1e-3: the mixing solve amplifies the "
+              f"transforms' last bit), r_norm rel {dr:.2e}; launches of one solve {counts}")
+        check(int(dt.iterations) == int(ds.iterations) == n_it, f"{label} iterations")
+        check(dx <= 1e-3, f"{label}: tiled off the single-device solve by {dx}")
+        out[label] = {"it_s": n_it / sec_t, "single_it_s": n_it / sec_s, "dx": dx,
+                      "launches": counts["stencil_halo"]}
 
     profile_tiled(lambda v: tiled_tv_deconvolve(v, mesh=mesh, **solve_kw),
                   lambda v: tv_deconvolve(v, **solve_kw), y)
@@ -1525,6 +1583,388 @@ def phase_quality_solvers(dev) -> None:
         check(db >= QUALITY_FLOORS[name], f"{name} PSNR {db} below {QUALITY_FLOORS[name]}")
 
 
+def phase_anderson(dev) -> dict:
+    """``tv_deconvolve_anderson`` on ``bench_suite.py``'s Anderson rows."""
+    from admm_deconv_tpu_torch import (
+        anderson_history_bytes,
+        peak_snr,
+        tv_deconvolve,
+        tv_deconvolve_adaptive,
+        tv_deconvolve_anderson,
+    )
+    from admm_deconv_tpu_torch.utils import IterationTimer
+
+    out = {}
+    # (a) anderson_256: iterations to reach 100 plain iterations' residual.
+    clean, blurred, bpsf = blocks_scenario()
+    ref, yb = torch.from_numpy(clean).to(dev), torch.from_numpy(blurred).to(dev)
+    kw = {"psf": torch.from_numpy(bpsf).to(dev), "lam": LAM, "rho": RHO}
+    _, d_plain = tv_deconvolve(yb, iters=100, return_diagnostics=True, **kw)
+    target = float(d_plain.r_norm.max())
+    needed = None
+    for it in ANDERSON_LADDER:
+        reset_counts()
+        x, d = tv_deconvolve_anderson(yb, iters=it, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts == expect_counts(prox_dual=it - 1), f"anderson_256 launches {counts}")
+        check(x_ok(x, yb) and int(d.iterations) == it, "anderson_256 output")
+        r, db = float(d.r_norm.max()), float(peak_snr(torch.clamp(x, 0, 1), ref))
+        print(f"[anderson] anderson_256 {it} iterations: max r_norm {r:.5f} (100 plain "
+              f"iterations: {target:.5f}), PSNR {db:.4f} dB, {counts['prox_dual']} Q2-5 launches")
+        if r <= target:
+            needed = it
+            break
+    check(needed is not None and needed < 100,
+          f"Anderson did not reach the plain residual {target} in under 100 iterations")
+    x100, _ = tv_deconvolve_anderson(yb, iters=100, **kw)
+    db100 = float(peak_snr(torch.clamp(x100, 0, 1), ref))
+    floor = QUALITY_FLOORS["tv_deconvolve fp32"]
+    print(f"[anderson] anderson_256: aa_iters_to_match {needed} (plain 100); PSNR at the match "
+          f"{db:.4f} dB, at 100 Anderson iterations {db100:.4f} dB (tv_deconvolve's floor {floor}; "
+          f"the matched solve is held to the floor less 0.1 dB: it matches the residual, "
+          f"not the iterate)")
+    check(db100 >= floor and db >= floor - 0.1, f"Anderson PSNR {db} / {db100} below {floor}")
+    out["anderson_256"] = {"iters_to_match": needed, "psnr": db, "psnr_100": db100}
+
+    # (b) anderson_1080p_overhead: per-iteration cost at the bench shape.
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.random(BENCH_SHAPE, dtype=np.float64).astype(np.float32)).to(dev)
+    psf = motion_psf(dev)
+    kw = {"psf": psf, "lam": LAM, "rho": RHO, "iters": BENCH_ITERS}
+    solve_aa = lambda v: tv_deconvolve_anderson(v, m=ANDERSON_M, **kw)  # noqa: E731
+    history = anderson_history_bytes(BENCH_SHAPE, ANDERSON_M)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    x, d = solve_aa(y)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    check(counts == expect_counts(prox_dual=BENCH_ITERS - 1),
+          f"anderson 1080p launches {counts}: want {BENCH_ITERS - 1} Q2-5 and no Q2-1")
+    check(x_ok(x, y) and int(d.iterations) == BENCH_ITERS, "anderson 1080p output")
+    check(peak >= history, f"peak {peak} below the history's {history} bytes")
+    aa = IterationTimer(lambda v: solve_aa(v)[0], lambda i: (y + 1e-3 * i,)).measure(repeats=3)
+    tv = IterationTimer(lambda v: tv_deconvolve(v, **kw), lambda i: (y + 1e-3 * i,)).measure(repeats=3)
+    aa_it_s, tv_it_s = (BENCH_ITERS / t["seconds_per_call"] for t in (aa, tv))
+    print(f"[anderson] anderson_1080p_overhead {BENCH_SHAPE}, {BENCH_ITERS} iterations, "
+          f"m={ANDERSON_M}: {aa_it_s:.2f} it/s ({aa['seconds_per_call']:.4f} s a solve) beside "
+          f"tv_deconvolve {tv_it_s:.2f} it/s on the same inputs (IterationTimer, 3 fresh inputs "
+          f"after one warm-up): {aa_it_s / tv_it_s:.3f}x; launches {counts}")
+    print(f"[anderson] peak memory of one solve {peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB "
+          f"held before it; anderson_history_bytes {history / 1e9:.3f} GB "
+          f"({peak / history:.2f}x); final max r_norm {float(d.r_norm.max()):.4e}, "
+          f"fixed-point residual {float(d.s_norm.max()):.4e}")
+    out["anderson_1080p_overhead"] = {"it_s": aa_it_s, "tv_it_s": tv_it_s, "peak_bytes": peak,
+                                      "history_bytes": history, "launches": counts}
+    profile_anderson("anderson 1080p 50 it m=5", solve_aa, y)
+    del x, y
+    out["probe_contraction"] = probe_contraction_times(dev)
+
+    # (c) ttq_1080p with early_stop at the adaptive solver's tolerances.
+    clean, yt, psf = ttq_scene(dev, "ttq_1080p")
+    _, _, eps_abs, eps_rel, cap = TTQ["ttq_1080p"]
+    kw = {"psf": psf, "lam": LAM, "rho": RHO, "eps_abs": eps_abs, "eps_rel": eps_rel}
+    sec_ad, res_ad = timed_solves(
+        lambda v: tv_deconvolve_adaptive(v, max_iters=cap, check_every=CHECK_EVERY,
+                                         adapt_rho=True, **kw), yt, TTQ_REPEATS)
+    db_ad = float(peak_snr(torch.clamp(res_ad[0][0], 0, 1), clean))
+    print(f"[anderson] ttq_1080p adaptive(check8): {sec_ad:.4f} s to tolerance (median of "
+          f"{TTQ_REPEATS}), iterations {[int(r[1].iterations) for r in res_ad]}, "
+          f"PSNR {db_ad:.4f} dB")
+    for label, k, iters in ((f"anderson(m={ANDERSON_M},early_stop)", 1, cap),
+                            (f"anderson(m={ANDERSON_M},k={AA_INTERVAL},early_stop)", AA_INTERVAL,
+                             2 * cap + 1)):
+        solve = lambda v, impl="auto", k=k, iters=iters: tv_deconvolve_anderson(  # noqa: E731
+            v, iters=iters, m=ANDERSON_M, early_stop=True, aa_interval=k, prox_impl=impl, **kw)
+        reset_counts()
+        xk, dk = solve(yt)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        its = int(dk.iterations)
+        outer = (its - 1) // k
+        want = (expect_counts(prox_dual=outer) if k == 1 else
+                expect_counts(fused_admm_stencil=(k - 2) * outer, prox_dual=2 * outer))
+        check(counts == want, f"{label} launches {counts} != {want}")
+        check(x_ok(xk, yt) and (its - 1) % k == 0 and its < iters, f"{label}: {its} iterations")
+        xp, dp = solve(yt, impl="xla")
+        dx = float((xk - xp).abs().max())
+        db = float(peak_snr(torch.clamp(xk, 0, 1), clean))
+        sec, res = timed_solves(solve, yt, TTQ_REPEATS)
+        print(f"[anderson] ttq_1080p {label}: {its} iterations ({outer} outer steps), "
+              f"{sec:.4f} s to tolerance (median of {TTQ_REPEATS}, fresh inputs, iterations "
+              f"{[int(r[1].iterations) for r in res]}) beside the adaptive solver's "
+              f"{sec_ad:.4f} s; "
+              f"PSNR {db:.4f} dB; prox_impl='xla': {int(dp.iterations)} iterations, "
+              f"max|x_kernel - x_xla| {dx:.3e} (bound 1e-3: the mixing solve amplifies the "
+              f"last bit); launches {counts}")
+        check(its == int(dp.iterations), f"{label}: kernel vs plain iteration count")
+        check(dx <= 1e-3, f"{label}: kernel path off the plain path by {dx}")
+        out[label] = {"iterations": its, "s": sec, "adaptive_s": sec_ad, "dx": dx,
+                      "launches": counts}
+    return out
+
+
+def probe_contraction_times(dev) -> dict:
+    """The mixer's probe contraction ``(m, N, D) x (2, N, D) -> (N, m, 2)`` at
+    the 1080p batch-4 state, as one batched product per image and split over
+    H chunks of D (what the solver runs), in turns, and the split at other
+    chunk counts; CUDA events."""
+    from admm_deconv_tpu_torch.ops.solver import _AndersonMixer
+
+    n, h, w = BENCH_SHAPE[0] * BENCH_SHAPE[3], BENCH_SHAPE[1], BENCH_SHAPE[2]
+    d = 4 * h * w
+    gen = torch.Generator(device=dev).manual_seed(0)
+    probe = torch.randn((2, n, d), generator=gen, device=dev)
+    mixer = _AndersonMixer(n, d, ANDERSON_M, 1e-10, 1e6, torch.float32, dev, chunks=h)
+    mixer.dF.normal_(generator=gen)
+
+    def whole():
+        return torch.einsum("knd,jnd->nkj", mixer.dF, probe)
+
+    def split():
+        return mixer._probe_ring(probe)
+
+    rel = float((split() - whole()).abs().max() / whole().abs().max())
+    # Why H chunks: the split's time over chunk counts around it.
+    sweep = {}
+    for c in (16, h // 8, h, 4 * h, 64 * h):
+        mixer.chunks = c
+        sweep[c] = cuda_ms(split, 3)
+    mixer.chunks = h
+    print("[anderson] probe contraction split over c chunks of D, ms: "
+          + ", ".join(f"c={c} {ms:.3f}" for c, ms in sweep.items()))
+    w1, s1, s2, w2 = (cuda_ms(f, 3) for f in (whole, split, split, whole))
+    floor = 1e3 * 4 * (mixer.dF.numel() + probe.numel()) / HBM_BYTES_PER_S
+    print(f"[anderson] probe contraction ({ANDERSON_M}, {n}, {d}) x (2, {n}, {d}): one product "
+          f"an image {w1:.3f}/{w2:.3f} ms, split over {h} chunks of D {s1:.3f}/{s2:.3f} ms "
+          f"(reading the ring and the probe once at {HBM_BYTES_PER_S / 1e12} TB/s: "
+          f"{floor:.3f} ms); results agree to {rel:.2e} of the largest entry")
+    check(rel <= 1e-4, f"split probe contraction off the whole one by {rel}")
+    return {"whole_ms": min(w1, w2), "split_ms": min(s1, s2), "floor_ms": floor}
+
+
+# Device-time groups of the Anderson solve's profile, by kernel name; the
+# solver's three ``record_function`` ranges are reported beside.
+ANDERSON_PROFILE_GROUPS = (
+    ("the two contractions (cuBLAS)", ("gemm", "gemv", "cutlass", "splitK", "dot_kernel")),
+    ("linalg.solve (LU and triangular solves)", ("getrf", "getrs", "trsm", "laswp", "lu_", "LU")),
+    ("cuFFT", ("fft", "FFT")),
+    ("Q2-5 prox_dual", ("prox_dual",)),
+    ("concatenations (torch.stack)", ("CatArrayBatchedCopy",)),
+)
+
+
+def profile_anderson(label: str, solve, y) -> None:
+    """Device time of one Anderson solve under torch.profiler: by the
+    solver's ranges (map, ring writes, mixing) and by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solve(y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(y + 1e-4 * (TTQ_REPEATS + 1))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = device_events(prof, label)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[anderson profile] {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"share {1 - busy / wall_ms:.3f}")
+    events = prof.key_averages()
+    for e in events:
+        if e.key.startswith("admm/aa_"):
+            where = "device" if e.device_type == DeviceType.CUDA else "host"
+            t = e.self_device_time_total if where == "device" else e.cpu_time_total
+            print(f"[anderson profile]   range {e.key} on the {where}: {t / 1e3:.3f} ms, "
+                  f"{e.count} times")
+    seen = set()
+    for group, keys in ANDERSON_PROFILE_GROUPS:
+        members = [e for e in kernels if e.key not in seen and any(k in e.key for k in keys)]
+        seen |= {e.key for e in members}
+        ms = sum(e.self_device_time_total for e in members) / 1e3
+        print(f"[anderson profile]   {group}: {ms:.3f} ms ({ms / busy:.1%} of busy), "
+              f"{sum(e.count for e in members)} launches")
+    ms = sum(e.self_device_time_total for e in kernels if e.key not in seen) / 1e3
+    print(f"[anderson profile]   everything else (elementwise passes: ring writes, D, D^T, "
+          f"norms, the complex rhs): {ms:.3f} ms ({ms / busy:.1%})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[anderson profile]     {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:90]}")
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.key in ("aten::linalg_solve_ex", "aten::bmm", "aten::_fft_r2c", "aten::_fft_c2r")]
+    print("[anderson profile]   host time: " + ", ".join(
+        f"{e.key} {e.cpu_time_total / 1e3:.3f} ms / {e.count}" for e in host))
+
+
+def phase_implicit(dev, tv: dict) -> dict:
+    """``tv_deconvolve_implicit``: the card's gradients against the CPU's, and
+    the 1080p TV-layer step with ``diff_mode="implicit"`` beside the
+    unrolled remat step (``tv``: :func:`phase_tv_layer`'s steps)."""
+    from admm_deconv_tpu_torch import tv_deconvolve_implicit
+    from admm_deconv_tpu_torch.layers import ADMMDeconv
+    from admm_deconv_tpu_torch.metrics import mse
+
+    # The card against the CPU: 2 x 48 x 64 x 3, 5x5 motion PSF, per-image lam.
+    rng = np.random.default_rng(11)
+    y = rng.random(IMPLICIT_GRAD_SHAPE).astype(np.float32)
+    w = rng.standard_normal(y.shape).astype(np.float32)
+    psf = np.zeros((5, 5), np.float32)
+    psf[2, :] = 0.2
+    iters = 40
+    grads = {}
+    for where in ("cpu", dev):
+        leaves = [torch.tensor(a, device=where, requires_grad=True)
+                  for a in (y, psf, np.asarray([0.005, 0.02], np.float32), np.float32(0.05))]
+        reset_counts()
+        x = tv_deconvolve_implicit(leaves[0], psf=leaves[1], lam=leaves[2], rho=leaves[3],
+                                   iters=iters, bwd_iters=30)
+        (x * torch.tensor(w, device=where)).sum().backward()
+        counts = read_counts()
+        want = expect_counts(prox_dual=iters) if where is dev else expect_counts()
+        check(counts == want, f"implicit solve on {where} launches {counts} != {want}")
+        grads[str(where)] = [leaf.grad.cpu() for leaf in leaves]
+    print("[implicit] tolerance: each gradient on the card within 1e-3 of the CPU's largest "
+          "entry (cuFFT and pocketfft round differently, carried through 30 VJPs)")
+    for name, g, g_cpu in zip(("y", "psf", "lam", "rho"), grads[str(dev)], grads["cpu"]):
+        check(bool(torch.isfinite(g).all()), f"implicit {name} gradient not finite")
+        rel = float((g - g_cpu).abs().max() / g_cpu.abs().max())
+        print(f"[implicit] d{name}: card vs cpu {rel:.2e} of the largest entry "
+              f"({float(g_cpu.abs().max()):.4e})")
+        check(rel <= 1e-3, f"implicit {name} gradient: card off the CPU by {rel}")
+    print(f"[implicit] {iters} Q2-5 launches in the {iters}-iteration forward on the card, "
+          f"none in the backward, none on the CPU")
+
+    # The 1080p TV-layer step, implicit beside unrolled (remat, kernels).
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.random(TV_SHAPE, dtype=np.float32)).to(dev)
+    t = torch.from_numpy(rng.random(TV_SHAPE, dtype=np.float32)).to(dev)
+    inputs = [x + 1e-3 * i for i in range(TV_REPEATS + 1)]
+    layer = ADMMDeconv(kernel_shape=(), iters=TV_ITERS, iso=False, lam_init=0.05, rho_init=0.5,
+                       trainable=("lam", "rho"), diff_mode="implicit").to(dev)
+    opt = torch.optim.Adam(layer.parameters(), lr=1e-3, eps=1e-8)
+
+    def step(xi):
+        loss = mse(layer(xi), t)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    def peak_of(fn, xi):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(xi)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - held
+
+    unrolled = tv["kernel fp32"][0]
+    reset_counts()
+    ms_i = timed_steps(step, inputs)
+    per_step = {k: v / len(inputs) for k, v in read_counts().items()}
+    want = {k: 0 for k in per_step} | {"prox_dual": TV_ITERS}
+    check(per_step == want, f"implicit TV layer launches per step {per_step} != {want}")
+    ms_u = timed_steps(unrolled, inputs)
+    peak_i, peak_u = peak_of(step, inputs[0]), peak_of(unrolled, inputs[0])
+    check(bool(torch.isfinite(layer.lam).all() and torch.isfinite(layer.rho).all()),
+          "implicit TV layer parameters not finite")
+    plane_set = 4 * float(np.prod(TV_SHAPE))
+    print(f"[implicit] {TV_SHAPE}, {TV_ITERS} iterations, Adam + mse: diff_mode='implicit' "
+          f"(bwd_iters {layer.bwd_iters}) {ms_i:.3f} ms/step, peak {peak_i / 1e9:.3f} GB above "
+          f"what the step found allocated ({peak_i / plane_set:.1f} plane sets of "
+          f"{plane_set / 1e6:.1f} MB); unrolled remat through the kernels {ms_u:.3f} ms/step, "
+          f"peak {peak_u / 1e9:.3f} GB ({peak_u / plane_set:.1f} plane sets); launches per "
+          f"implicit step {per_step}")
+    # No per-iteration activations: the implicit step's peak must not grow
+    # with the iteration count, so it stays under the unrolled step's, which
+    # keeps a checkpoint per iteration.
+    check(peak_i < peak_u, f"implicit peak {peak_i} not below the unrolled {peak_u}")
+    layer.iters = 2 * TV_ITERS
+    peak_2i = peak_of(step, inputs[1])
+    print(f"[implicit] at {2 * TV_ITERS} iterations the implicit step's peak is "
+          f"{peak_2i / 1e9:.3f} GB ({peak_2i / peak_i:.3f}x)")
+    check(peak_2i <= 1.05 * peak_i, "the implicit step's memory grows with the iterations")
+    return {"ms": ms_i, "unrolled_ms": ms_u, "peak": peak_i, "unrolled_peak": peak_u,
+            "launches": per_step}
+
+
+def phase_utils(dev) -> None:
+    """utils on the card: solver-state save/load, a profiler trace, and which
+    of the port's paths run under ``deterministic_mode()``."""
+    from admm_deconv_tpu_torch import (
+        composite_tv_deconvolve,
+        tv_deconvolve,
+        tv_deconvolve_adaptive,
+        tv_deconvolve_anderson,
+        tv_deconvolve_implicit,
+    )
+    from admm_deconv_tpu_torch.utils import (
+        deterministic_mode,
+        load_solver_state,
+        save_solver_state,
+    )
+    from admm_deconv_tpu_torch.utils.profiling import profile_trace
+
+    clean, blurred, bpsf = blocks_scenario()
+    y, psf = torch.from_numpy(blurred).to(dev), torch.from_numpy(bpsf).to(dev)
+    kw = {"psf": psf, "lam": LAM, "rho": RHO}
+    with tempfile.TemporaryDirectory() as tmp:
+        x7, state = tv_deconvolve(y, iters=7, return_state=True, **kw)
+        path = os.path.join(tmp, "state", "s.npz")
+        save_solver_state(path, state)
+        back = load_solver_state(path)
+        check(all(a.device.type == "cuda" and torch.equal(a, b) for a, b in zip(back, state)),
+              "a saved state loads on the card, bit for bit")
+        x12 = tv_deconvolve(y, iters=5, init_state=back, return_diagnostics=True, **kw)[0]
+        x12_direct = tv_deconvolve(y, iters=12, return_diagnostics=True, **kw)[0]
+        dx = float((x12 - x12_direct).abs().max())
+        print(f"[utils] save_solver_state / load_solver_state on the card: 7 + 5 warm-started "
+              f"iterations vs 12: max|dx| {dx:.3e}")
+        check(dx <= 1e-6, f"warm start off by {dx}")
+        profile_trace(lambda v: tv_deconvolve(v, iters=5, **kw), y, log_dir=os.path.join(tmp, "tr"))
+        with open(os.path.join(tmp, "tr", "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        check(any("stencil_fwd_kernel" in n for n in names), "profile_trace saw no device kernel")
+        print(f"[utils] profile_trace wrote a Chrome trace with {len(names)} event names, "
+              f"the stencil kernel among them")
+
+    # Which paths run under torch.use_deterministic_algorithms(True) when
+    # CUBLAS_WORKSPACE_CONFIG is not set: every path below must, and a
+    # failure raises.
+    check("CUBLAS_WORKSPACE_CONFIG" not in os.environ, "CUBLAS_WORKSPACE_CONFIG is set")
+
+    def implicit_step():
+        lam = torch.tensor(LAM, device=dev, requires_grad=True)
+        tv_deconvolve_implicit(y, lam=lam, rho=RHO, psf=psf, iters=8, bwd_iters=4).sum().backward()
+
+    def unrolled_step():
+        lam = torch.tensor(LAM, device=dev, requires_grad=True)
+        tv_deconvolve(y, lam=lam, rho=RHO, psf=psf, iters=8).sum().backward()
+
+    paths = (
+        ("tv_deconvolve (Q2-1)", lambda: tv_deconvolve(y, iters=8, **kw)),
+        ("tv_deconvolve_adaptive check_every=8 (Q2-1, Q2-5)",
+         lambda: tv_deconvolve_adaptive(y, max_iters=16, check_every=8, **kw)),
+        ("composite_tv_deconvolve (Q2-3)",
+         lambda: composite_tv_deconvolve(y, psf=psf, iters=8, **COMPOSITE_KW)),
+        ("tv_deconvolve backward (Q2-2)", unrolled_step),
+        ("tv_deconvolve_implicit forward + backward (Q2-5)", implicit_step),
+        ("tv_deconvolve_anderson (torch.bmm, linalg.solve)",
+         lambda: tv_deconvolve_anderson(y, iters=9, **kw)),
+    )
+    was = torch.are_deterministic_algorithms_enabled(), torch.is_anomaly_enabled()
+    for name, fn in paths:
+        with deterministic_mode():
+            fn()
+            torch.cuda.synchronize()
+        print(f"[utils] under deterministic_mode(): {name}: runs")
+    check((torch.are_deterministic_algorithms_enabled(), torch.is_anomaly_enabled()) == was,
+          "deterministic_mode restored the settings")
+
+
 def bound(shape, bytes_per_px: float, flops_per_px: float) -> dict:
     """The least time for a kernel's work: bytes over the HBM rate, operations
     over the fp32 peak; the larger bounds it."""
@@ -1598,6 +2038,7 @@ def main() -> None:
     auto = phase_solve_auto(dev)
     composite = phase_composite(dev)
     new_times = phase_new_kernel_times(dev, gen)
+    anderson = phase_anderson(dev)
     tiled = phase_tiled(dev)
     new_times |= phase_halo_times(dev, gen)
     phase_train_parity(dev, args.seed)
@@ -1606,6 +2047,8 @@ def main() -> None:
     tv = phase_tv_layer(dev)
     times = phase_kernel_times(dev, gen)
     phase_train_profile(flagship, tv)
+    implicit = phase_implicit(dev, tv)
+    phase_utils(dev)
     check("admm_deconv_tpu" not in sys.modules, "the JAX package was imported")
 
     # Again at the end, beside the numbers: a log's tail keeps it.
@@ -1625,6 +2068,17 @@ def main() -> None:
     print("[summary] tiled T=1 against the single device: " + "; ".join(
         f"{k} {v['it_s']:.2f} / {v['single_it_s']:.2f} it/s" if "it_s" in v else
         f"{k} {v['s']:.4f} / {v['single_s']:.4f} s" for k, v in tiled.items()))
+    aa_over = anderson["anderson_1080p_overhead"]
+    print(f"[summary] anderson: iterations to match 100 plain at 256^2: "
+          f"{anderson['anderson_256']['iters_to_match']}; 1080p 50 it m={ANDERSON_M}: "
+          f"{aa_over['it_s']:.2f} it/s beside tv_deconvolve {aa_over['tv_it_s']:.2f}; peak "
+          f"{aa_over['peak_bytes'] / 1e9:.3f} GB, history "
+          f"{aa_over['history_bytes'] / 1e9:.3f} GB; "
+          + "; ".join(f"ttq_1080p {k}: {v['iterations']} it, {v['s']:.4f} s (adaptive "
+                      f"{v['adaptive_s']:.4f} s)" for k, v in anderson.items() if "adaptive_s" in v))
+    print(f"[summary] implicit TV-layer step {implicit['ms']:.3f} ms, peak "
+          f"{implicit['peak'] / 1e9:.3f} GB; unrolled remat {implicit['unrolled_ms']:.3f} ms, "
+          f"peak {implicit['unrolled_peak'] / 1e9:.3f} GB")
     # The training path's launches for the stencil kernels; this slice's
     # main paths (the adaptive ttq_1080p solve, the fp32 composite solve)
     # for the prox-dual and composite kernels.
@@ -1654,6 +2108,22 @@ def main() -> None:
              max(worst_halo.values()), "halo_fp32"),
         )
     ]}
+    # The Anderson and implicit paths: launches of one solve or step, read
+    # after each.
+    aa8 = anderson[f"anderson(m={ANDERSON_M},k={AA_INTERVAL},early_stop)"]["launches"]
+    by_kernel = {k["name"]: k for k in record["kernels"]}
+    by_kernel["fused_admm_stencil"]["launches_by_path"] = {
+        "anderson ttq_1080p aa_interval=8": aa8["fused_admm_stencil"]}
+    by_kernel["fused_prox_dual"]["launches_by_path"] = {
+        "anderson 1080p 50 it": aa_over["launches"]["prox_dual"],
+        "anderson ttq_1080p aa_interval=8": aa8["prox_dual"],
+        "implicit TV-layer step": int(implicit["launches"]["prox_dual"])}
+    by_kernel["fused_admm_stencil_halo"]["launches_by_path"] = {
+        "tiled anderson 49 it aa_interval=8":
+            tiled[f"tiled anderson m={ANDERSON_M} aa_interval={AA_INTERVAL}"]["launches"]}
+    for name in ("fused_admm_stencil", "fused_prox_dual", "fused_admm_stencil_halo"):
+        check(all(v > 0 for v in by_kernel[name]["launches_by_path"].values()),
+              f"{name} was not launched on an Anderson or implicit path")
     for entry, key in ((record["kernels"][-2], "composite_bf16"),
                        (record["kernels"][-1], "halo_bf16")):
         bf16 = times[key]

@@ -56,6 +56,19 @@ def cases():
                                          "rho2": 0.05, "iters": 12, "x_bounds": (0.0, 1.0),
                                          "prox_impl": "pallas"}),
         ("one_row", "tiled", "rows", {"lam": 0.02, "rho": 0.5, "iters": 5, "prox_impl": "pallas"}),
+        ("anderson_aa1", "anderson", "y", {"lam": 0.01, "rho": 0.05, "iters": 9, "m": 3,
+                                           "prox_impl": "pallas"}),
+        ("anderson_aa4", "anderson", "y", {"lam": lam2, "rho": rho2, "iters": 13, "m": 5,
+                                           "aa_interval": 4, "prox_impl": "pallas"}),
+        ("anderson_stop", "anderson", "y", {"lam": 0.01, "rho": 0.05, "iters": 41, "m": 5,
+                                            "early_stop": True, "eps_abs": 1e-3,
+                                            "eps_rel": 1e-2}),
+        ("anderson_stop_aa4", "anderson", "y", {"lam": 0.01, "rho": 0.05, "iters": 41, "m": 5,
+                                                "early_stop": True, "eps_abs": 1e-3,
+                                                "eps_rel": 1e-2, "aa_interval": 4,
+                                                "prox_impl": "pallas"}),
+        ("anderson_rows", "anderson", "rows", {"lam": 0.02, "rho": 0.5, "iters": 7, "m": 2,
+                                               "aa_interval": 3, "prox_impl": "pallas"}),
     ]
 
 
@@ -73,6 +86,7 @@ def main() -> None:
         shard_batch,
         tiled_composite_tv_deconvolve,
         tiled_tv_deconvolve,
+        tiled_tv_deconvolve_anderson,
     )
 
     distributed.initialize(f"127.0.0.1:{port}", world, rank, device_type="cpu")
@@ -105,7 +119,8 @@ def main() -> None:
             raise AssertionError("planes % D != 0 was not rejected")
 
     inputs = {k: torch.from_numpy(v) for k, v in scene(t).items()}
-    solvers = {"tiled": tiled_tv_deconvolve, "composite": tiled_composite_tv_deconvolve}
+    solvers = {"tiled": tiled_tv_deconvolve, "composite": tiled_composite_tv_deconvolve,
+               "anderson": tiled_tv_deconvolve_anderson}
     results = {}
     for name, solver, inp, kw in cases():
         out = solvers[solver](inputs[inp], psf=None if inp == "rows" else inputs["psf"],

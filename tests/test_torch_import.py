@@ -154,6 +154,59 @@ def test_port_tiled_solvers_run_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_port_solver_family_runs_with_jax_blocked():
+    """The rest of the solver family imports without jax: the Anderson
+    solvers (single-device and tiled), the implicit gradient and its layer,
+    and ``utils``; every new name is exported; no kernel is built."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "import admm_deconv_tpu_torch as adt\n"
+        "import admm_deconv_tpu_torch.ops.implicit, admm_deconv_tpu_torch.utils as utils\n"
+        "import admm_deconv_tpu_torch.utils.arrays, admm_deconv_tpu_torch.utils.diff3d\n"
+        "import admm_deconv_tpu_torch.utils.debug, admm_deconv_tpu_torch.utils.profiling\n"
+        "from admm_deconv_tpu_torch import ops, parallel\n"
+        "from admm_deconv_tpu_torch.layers import ADMMDeconv\n"
+        "from admm_deconv_tpu_torch.ops.kernels import prox_kernels as pk, stencil_kernels as sk\n"
+        "for name in ('tv_deconvolve_anderson', 'anderson_history_bytes',\n"
+        "             'tv_deconvolve_implicit'):\n"
+        "    assert name in adt.__all__ and name in ops.__all__, name\n"
+        "assert 'psf_to_otf_full' in ops.__all__\n"
+        "assert 'tiled_tv_deconvolve_anderson' in parallel.__all__\n"
+        "assert len(utils.__all__) == 10 and all(hasattr(utils, n) for n in utils.__all__)\n"
+        "y = torch.rand(2, 16, 24, 3, generator=torch.Generator().manual_seed(0))\n"
+        "psf = torch.zeros(5, 5); psf[2, :] = 0.2\n"
+        "x, d = adt.tv_deconvolve_anderson(y, psf=psf, lam=0.01, rho=0.1, iters=9, m='auto',\n"
+        "                                  aa_interval=4)\n"
+        "assert x.shape == y.shape and int(d.iterations) == 9\n"
+        "assert adt.anderson_history_bytes(tuple(y.shape), 5) == 2 * 6 * 6 * 4 * 16 * 24 * 4\n"
+        "mesh = parallel.make_mesh({'tile': 1}, device_type='cpu')\n"
+        "xt, dt = parallel.tiled_tv_deconvolve_anderson(y, psf=psf, lam=0.01, rho=0.1, iters=9,\n"
+        "                                               aa_interval=4, mesh=mesh)\n"
+        "assert float((xt - x).abs().max()) < 1e-5\n"
+        "lam = torch.tensor(0.01, requires_grad=True)\n"
+        "adt.tv_deconvolve_implicit(y, psf=psf, lam=lam, rho=0.1, iters=6, bwd_iters=3)\\\n"
+        "    .sum().backward()\n"
+        "assert bool(torch.isfinite(lam.grad))\n"
+        "layer = ADMMDeconv(kernel_shape=(3, 3), iters=3, diff_mode='implicit', bwd_iters=2,\n"
+        "                   lam_init=0.01, rho_init=0.1)\n"
+        "layer(y).sum().backward()\n"
+        "assert bool(torch.isfinite(layer.weight.grad).all())\n"
+        "with utils.deterministic_mode(), utils.trace_annotation('solve'):\n"
+        "    adt.tv_deconvolve(y, psf=psf, iters=2)\n"
+        "mods = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "        or m == 'admm_deconv_tpu' or m.startswith('admm_deconv_tpu.')]\n"
+        "assert mods == ['jax'], mods\n"
+        "for fn in (sk._kernel_fn, sk._halo_kernel_fn, pk._kernel_fn):\n"
+        "    assert fn.cache_info().currsize == 0, 'kernel built on CPU'\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_refuses_without_cuda():
     proc = _run(["chip_smoke.py"])
     assert proc.returncode != 0

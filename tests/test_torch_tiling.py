@@ -7,9 +7,10 @@ with random halo rows; and the port's twin over 2 and 4 tiles, one-row
 tiles included, against the port's circular twin on the whole (the CUDA
 kernel is held to the twin on the card by ``chip_smoke.py``).
 
-The solvers: ``tiled_tv_deconvolve`` and ``tiled_composite_tv_deconvolve``
-on ``make_mesh({"tile": 1}, device_type="cpu")`` (a one-rank gloo group in
-this process) against the JAX package's on ``make_mesh({"tile": 1})``, and
+The solvers: ``tiled_tv_deconvolve``, ``tiled_composite_tv_deconvolve`` and
+``tiled_tv_deconvolve_anderson`` on
+``make_mesh({"tile": 1}, device_type="cpu")`` (a one-rank gloo group in this
+process) against the JAX package's on ``make_mesh({"tile": 1})``, and
 against the port's single-device solvers.  Several ranks:
 ``tests/test_torch_tiling_ranks.py``.
 
@@ -21,6 +22,8 @@ port's circular twin bit for bit.  Solves:
 x within ``rtol=1e-4, atol=1e-5`` (pocketfft and XLA's FFT round
 differently), iteration counts equal, rho to ``rtol=1e-6``; bf16 state is
 held to the fp32 envelope of JAX's bf16 solve, as in ``test_torch_solver.py``.
+The Anderson solves are short or stop early (at most 17 iterations), where
+the mixing solve's rounding has not grown yet (``test_torch_anderson.py``).
 """
 
 import jax.numpy as jnp
@@ -33,10 +36,12 @@ from admm_deconv_tpu.ops.solver import ADMMState as JaxADMMState
 from admm_deconv_tpu.parallel import make_mesh as jax_make_mesh
 from admm_deconv_tpu.parallel import tiled_composite_tv_deconvolve as jax_composite
 from admm_deconv_tpu.parallel import tiled_tv_deconvolve as jax_tiled
+from admm_deconv_tpu.parallel import tiled_tv_deconvolve_anderson as jax_tiled_anderson
 from admm_deconv_tpu_torch import (
     composite_tv_deconvolve,
     tv_deconvolve,
     tv_deconvolve_adaptive,
+    tv_deconvolve_anderson,
 )
 from admm_deconv_tpu_torch.ops.kernels import stencil_kernels as sk
 from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES
@@ -45,6 +50,7 @@ from admm_deconv_tpu_torch.parallel import (
     make_mesh,
     tiled_composite_tv_deconvolve,
     tiled_tv_deconvolve,
+    tiled_tv_deconvolve_anderson,
 )
 from admm_deconv_tpu_torch.utils.state_io import state_from_numpy, state_to_numpy
 from _torch_tiling_worker import scene
@@ -296,6 +302,65 @@ def test_tiled_composite_matches_jax(problem, meshes, prox_impl):
     _close(got, single.numpy())
 
 
+@pytest.mark.parametrize("case", ["aa1_pallas", "aa1_xla", "aa4_pallas", "aa4_xla", "iso_bounds",
+                                  "per_image", "denoise", "early_stop", "early_stop_aa4"])
+def test_tiled_anderson_matches_jax_and_single_device(problem, meshes, case):
+    """The tiled Anderson solver against JAX's tiled one and the port's
+    single-device one: x, both residual norms, equal iteration counts."""
+    y, psf = problem
+    kw = {"lam": 0.01, "rho": 0.05, "iters": 9, "m": 3}
+    kw |= {
+        "aa1_pallas": {"prox_impl": "pallas"},
+        "aa1_xla": {"prox_impl": "xla"},
+        "aa4_pallas": {"aa_interval": 4, "prox_impl": "pallas"},
+        "aa4_xla": {"aa_interval": 4, "prox_impl": "xla"},
+        "iso_bounds": {"prox": "iso", "x_bounds": (0.25, 0.55), "aa_interval": 4},
+        "per_image": {"lam": np.asarray([0.01, 0.03], np.float32),
+                      "rho": np.asarray([0.05, 0.2], np.float32), "m": 5},
+        "denoise": {},
+        "early_stop": {"iters": 41, "m": 5, "early_stop": True, "eps_abs": 1e-3, "eps_rel": 1e-2},
+        "early_stop_aa4": {"iters": 41, "m": 5, "early_stop": True, "eps_abs": 1e-3,
+                           "eps_rel": 1e-2, "aa_interval": 4, "prox_impl": "pallas"},
+    }[case]
+    psf = None if case == "denoise" else psf
+    x, d = _port(y, psf, meshes[0], tiled_tv_deconvolve_anderson, **kw)
+    xj, dj = _jax(y, psf, meshes[1], jax_tiled_anderson, **kw)
+    xs, ds = tv_deconvolve_anderson(torch.from_numpy(y),
+                                    None if psf is None else torch.from_numpy(psf), **kw)
+    assert x.shape == y.shape
+    assert int(d.iterations) == int(dj.iterations) == int(ds.iterations)
+    if kw.get("early_stop"):
+        assert int(d.iterations) < kw["iters"]
+    else:
+        assert int(d.iterations) == kw["iters"]
+    _close(x, xj)
+    _close(x, xs.numpy())
+    for field in ("r_norm", "s_norm", "rho"):
+        got = getattr(d, field).numpy()
+        assert got.shape == (6,)
+        np.testing.assert_allclose(got, np.asarray(getattr(dj, field)), rtol=1e-3, err_msg=field)
+        np.testing.assert_allclose(got, getattr(ds, field).numpy(), rtol=1e-3, err_msg=field)
+
+
+@pytest.mark.parametrize("kw,err", [
+    ({"mesh": None}, "tiled_tv_deconvolve_anderson requires a mesh"),
+    ({"m": 0}, "Anderson window m must be >= 1, got 0"),
+    ({"iters": 1}, "tiled_tv_deconvolve_anderson needs iters >= 2"),
+    ({"iters": 10, "aa_interval": 4}, "aa_interval \\(4\\) must be >= 1 and divide iters - 1 \\(9\\)"),
+    ({"fft_mode": "mxu"}, "tiled solver fft_mode must be xla/fold/fold1/fold_precise, got 'mxu'"),
+])
+def test_tiled_anderson_rejects_as_jax(problem, meshes, kw, err):
+    y, _ = problem
+    kw = dict(kw)
+    port_mesh, jax_mesh = (None, None) if "mesh" in kw and kw.pop("mesh") is None else meshes
+    with pytest.raises(ValueError, match=err):
+        tiled_tv_deconvolve_anderson(torch.from_numpy(y), mesh=port_mesh, **kw)
+    with pytest.raises(ValueError, match=err):
+        jax_tiled_anderson(jnp.asarray(y), mesh=jax_mesh, **kw)
+    with pytest.raises(ValueError, match="inference path and is not differentiable"):
+        tiled_tv_deconvolve_anderson(torch.from_numpy(y).requires_grad_(), mesh=meshes[0], iters=3)
+
+
 @pytest.mark.parametrize("case,err", [
     ("odd_w", "W=47 must be even"),
     ("no_mesh", "requires a mesh"),
@@ -349,6 +414,7 @@ def test_cpu_tiled_solves_build_and_launch_no_kernel(problem, meshes):
     before = sk.fused_admm_stencil_halo.launches
     _port(y, psf, meshes[0], lam=0.01, rho=0.1, iters=4)
     _port(y, psf, meshes[0], tiled_composite_tv_deconvolve, iters=4)
+    _port(y, psf, meshes[0], tiled_tv_deconvolve_anderson, iters=9, aa_interval=4)
     assert sk.fused_admm_stencil_halo.launches == before
     assert sk._halo_kernel_fn.cache_info().currsize == 0
 
