@@ -11,11 +11,14 @@ from __future__ import annotations
 import torch
 
 from admm_deconv_tpu_torch.metrics.iqa import gradientsmag, imgrads
+from admm_deconv_tpu_torch.utils.arrays import as_tensor_pair
 
 
 def gmsd(x: torch.Tensor, y: torch.Tensor, t: float = 0.0026,
          alpha: float = 0.0) -> torch.Tensor:
-    """GMSD score between NHWC batches (lower is better; scalar)."""
+    """GMSD score between NHWC batches (lower is better; scalar).  Tensors
+    or numpy arrays (:func:`~admm_deconv_tpu_torch.utils.arrays.as_tensor_pair`)."""
+    x, y = as_tensor_pair(x, y)
     if x.ndim == 3:
         x, y = x[None], y[None]
     map_x = gradientsmag(*imgrads(x))

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from admm_deconv_tpu_torch.metrics.iqa import depthwise_conv
+from admm_deconv_tpu_torch.utils.arrays import as_tensor_pair
 
 # Gaussian kernel std=1.5, length=11 — the reference's values.
 SSIM_KERNEL_1D = np.array(
@@ -56,7 +57,9 @@ def _symmetric_pad(x: torch.Tensor, ph: tuple[int, int], pw: tuple[int, int]) ->
 def ssim(x: torch.Tensor, y: torch.Tensor, kernel: torch.Tensor | None = None,
          peakval: float = 1.0, crop: bool = True) -> torch.Tensor:
     """SSIM between NHWC image batches (scalar, batch-averaged).  ``kernel``
-    is ``(kh, kw, 1, 1)`` or ``(kh, kw)``."""
+    is ``(kh, kw, 1, 1)`` or ``(kh, kw)``.  Tensors or numpy arrays
+    (:func:`~admm_deconv_tpu_torch.utils.arrays.as_tensor_pair`)."""
+    x, y = as_tensor_pair(x, y)
     if x.shape != y.shape:
         raise ValueError(f"shape mismatch: {tuple(x.shape)} vs {tuple(y.shape)}")
     if x.ndim == 3:
@@ -100,6 +103,7 @@ def ssim_loss(x: torch.Tensor, y: torch.Tensor, **kwargs) -> torch.Tensor:
 def ssim_loss_fast(x: torch.Tensor, y: torch.Tensor, kernel_length: int = 5,
                    **kwargs) -> torch.Tensor:
     """SSIM loss with a normalised box window."""
+    x, y = as_tensor_pair(x, y)
     k = torch.ones((kernel_length, kernel_length, 1, 1), dtype=x.dtype)
     k = k / (kernel_length * kernel_length)
     return ssim_loss(x, y, kernel=k, **kwargs)

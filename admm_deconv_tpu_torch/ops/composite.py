@@ -32,6 +32,7 @@ from admm_deconv_tpu_torch.ops.solver import (
     _kernel_mode,
     _normalize_input,
     _prepare,
+    _refuse_grad,
     _solve_spectral,
     _tau_for_kernel,
     _unfold,
@@ -167,7 +168,9 @@ def composite_tv_deconvolve_adaptive(
     dual residual ``rho1 D^T(z1 - z1') + rho2 (z2 - z2')``, checked every
     iteration (one host sync each), with a common per-image factor on both
     penalties (their ratio is kept) and on both scaled duals.  Plain torch
-    on both devices, as in JAX: it runs no kernel.
+    on both devices, as in JAX: it runs no kernel.  An inference path: an
+    input that requires a gradient raises, as JAX's ``while_loop`` does
+    under ``jax.grad``.
 
     ``fft_mode`` "fold1", "pack" and "pack_precise" are rejected, as in JAX
     (a hoisted x_B or a scalar rho would not survive per-image
@@ -190,6 +193,7 @@ def composite_tv_deconvolve_adaptive(
         )
     tv_prox = prox_lib.resolve(prox)
     y = _input_tensor(y)
+    _refuse_grad("composite_tv_deconvolve_adaptive", y, psf, lam_tv, lam_l1, rho1, rho2)
     _, orig_shape = _normalize_input(y)
     y_f, b_f, denom_h, lap, lam_f, rho1_f, (b, h, w, c) = _prepare(y, psf, lam_tv, rho1)
     n = b * c

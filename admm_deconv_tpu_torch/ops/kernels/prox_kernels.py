@@ -70,7 +70,8 @@ def _prox_dual_cuda(dxx, dxy, ux, uy, tau, mode):
     if dxx.device.type != "cuda":
         raise ValueError(f"no prox-dual kernel for device {dxx.device}")
     if dxx.dtype != torch.float32:
-        raise ValueError(f"the CUDA prox-dual kernel takes float32, got {dxx.dtype}")
+        raise ValueError(f"the CUDA prox-dual kernel takes float32, got {dxx.dtype}: pass a "
+                         "float32 tensor, or a numpy array (it goes to the card as float32)")
     total = dxx.numel()
     if total == 0:
         raise ValueError(f"empty operands {tuple(dxx.shape)}")

@@ -153,7 +153,8 @@ def _check_cuda_operands(x, ux):
     if x.device.type != "cuda":
         raise ValueError(f"no stencil kernel for device {x.device}")
     if x.dtype != torch.float32:
-        raise ValueError(f"the CUDA stencil takes float32 x, got {x.dtype}")
+        raise ValueError(f"the CUDA stencil takes float32 x, got {x.dtype}: pass a float32 "
+                         "tensor, or a numpy array (it goes to the card as float32)")
     if ux.dtype not in _DUAL_DTYPES:
         raise ValueError(f"the CUDA stencil takes float32 or bfloat16 duals, got {ux.dtype}")
     n, h, w = x.shape

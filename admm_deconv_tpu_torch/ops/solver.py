@@ -37,6 +37,7 @@ array on its default device.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -51,6 +52,7 @@ from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
     fused_admm_stencil_mixed,
 )
 from admm_deconv_tpu_torch.ops.policy import policy
+from admm_deconv_tpu_torch.utils import arrays
 from admm_deconv_tpu_torch.utils.precision import fp32_matmuls
 from admm_deconv_tpu_torch.utils.profiling import trace_annotation
 
@@ -132,16 +134,12 @@ def _make_prox_step(prox, prox_impl):
 
 
 def _input_tensor(y) -> torch.Tensor:
-    """A ``torch.Tensor`` stays on its device; anything else (a numpy array)
-    goes to the card, as JAX puts a numpy array on its default device."""
-    if isinstance(y, torch.Tensor):
-        return y
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "a non-tensor input goes to the CUDA device and none is available; "
-            "pass a CPU torch.Tensor to solve on the CPU"
-        )
-    return torch.as_tensor(y, device="cuda")
+    """A ``torch.Tensor`` stays on its device and in its dtype; anything else
+    (a numpy array) goes to the card, a floating one as float32
+    (:func:`~admm_deconv_tpu_torch.utils.arrays.as_tensor`): numpy's float64
+    solves to float32, as in JAX.  A float64 tensor takes the plain path on
+    the CPU; on the card the kernels raise."""
+    return arrays.as_tensor(y)
 
 
 class ADMMState(NamedTuple):
@@ -485,7 +483,8 @@ def tv_deconvolve_adaptive(
     from the same q and gives ``state.x``).  The loop reads ``done`` on the
     host once per block: one sync per ``check_every`` iterations.
 
-    Not differentiable as a whole (early stopping); use
+    An inference path (early stopping): an input that requires a gradient
+    raises, as JAX's ``while_loop`` does under ``jax.grad``; use
     :func:`tv_deconvolve` as the learned-layer path.
 
     Returns ``(x, ADMMDiagnostics)`` with the true final residual norms of
@@ -500,6 +499,7 @@ def tv_deconvolve_adaptive(
         )
     prox_step = _make_prox_step(prox, prox_impl)
     y = _input_tensor(y)
+    _refuse_grad("tv_deconvolve_adaptive", y, psf, lam, rho)
     _, orig_shape = _normalize_input(y)
     y_f, b_f, denom_h, lap, lam_f, rho_f, (b, h, w, c) = _prepare(y, psf, lam, rho)
     n = b * c
@@ -766,9 +766,11 @@ class _AndersonMixer:
 
 
 def _refuse_grad(name, *args):
-    """The Anderson solvers write their history in place and carry no
-    gradient: refuse an input that asks for one instead of silently
-    returning a constant."""
+    """The inference paths (Anderson, the adaptive and tiled solvers) stop
+    early, write in place or run collectives, and carry no gradient, as the
+    JAX package's raise under ``jax.grad``: refuse an input that asks for
+    one instead of silently returning a constant or recording a graph over
+    every iteration."""
     if torch.is_grad_enabled() and any(
         isinstance(a, torch.Tensor) and a.requires_grad for a in args
     ):
@@ -777,6 +779,19 @@ def _refuse_grad(name, *args):
             f"inputs (or call it under torch.no_grad()), and use tv_deconvolve or "
             f"tv_deconvolve_implicit where a gradient is needed"
         )
+
+
+def _inference_only(fn):
+    """Run ``fn`` under ``no_grad`` after :func:`_refuse_grad` has checked
+    every tensor argument."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        _refuse_grad(fn.__name__, *args, *kwargs.values())
+        with torch.no_grad():
+            return fn(*args, **kwargs)
+
+    return wrapper
 
 
 def _check_anderson_args(name, m, iters, aa_interval):
@@ -981,9 +996,12 @@ def solve_auto(
     this takes the adaptive branch where the JAX package on its CPU
     backend takes ``tv_deconvolve``; both compute the same iterates.
 
+    An inference path: an input that requires a gradient raises.
+
     Returns ``(x, ADMMDiagnostics)`` for every branch.
     """
     y = _input_tensor(y)
+    _refuse_grad("solve_auto", y, psf, lam, rho)
 
     def fast_mid_ok(check_every):
         return check_every > 1 and _kernel_mode(prox, resolve_prox_impl("auto")) is not None

@@ -32,7 +32,9 @@ copy to itself.
 Every ``fft_mode`` name computes the exact ``torch.fft`` path: the JAX
 package's fold modes are TPU matmul DFTs and are not ported.  The names are
 checked as the JAX package checks them.  Not differentiable: the
-collectives carry no gradient, and the solvers run under ``no_grad``.
+collectives carry no gradient, the solvers run under ``no_grad``, and an
+input that requires a gradient raises, as ``jax.grad`` of the JAX package's
+tiled solvers does.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from admm_deconv_tpu_torch.ops.solver import (
     _check_modes,
     _fold,
     _fold_param,
+    _inference_only,
     _kernel_mode,
     _make_prox_step,
     _normalize_input,
@@ -65,6 +68,7 @@ from admm_deconv_tpu_torch.ops.solver import (
 )
 from admm_deconv_tpu_torch.parallel.distributed import all_gather_cat
 from admm_deconv_tpu_torch.parallel.mesh import axis_size
+from admm_deconv_tpu_torch.utils.arrays import as_tensor
 from admm_deconv_tpu_torch.utils.profiling import trace_annotation
 
 # The JAX tiled solver's fft_mode names ("auto" resolves to "xla").
@@ -362,10 +366,10 @@ def _setup(y, psf, mesh, axis_name, data_axis_name):
                 f"move y to the mesh's device"
             )
     else:
-        # A numpy array goes to this rank's device of the mesh.
+        # A numpy array goes to this rank's device of the mesh, as float32.
         device = torch.device("cuda", torch.cuda.current_device()) \
             if mesh.device_type == "cuda" else torch.device("cpu")
-        y = torch.as_tensor(y, device=device)
+        y = as_tensor(y, device)
     y4, orig_shape = _normalize_input(y)
     b, h, w, c = y4.shape
     if h % tiles.t != 0:
@@ -407,7 +411,7 @@ def _check_fft_mode(fft_mode, prox_impl):
     return fft_mode, prox_impl
 
 
-@torch.no_grad()
+@_inference_only
 def tiled_tv_deconvolve(
     y,
     psf=None,
@@ -527,7 +531,7 @@ def tiled_tv_deconvolve(
     return out if len(out) > 1 else out[0]
 
 
-@torch.no_grad()
+@_inference_only
 def tiled_composite_tv_deconvolve(
     y,
     psf=None,

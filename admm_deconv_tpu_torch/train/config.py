@@ -3,8 +3,10 @@
 Counterpart of ``admm_deconv_tpu/train/config.py``, field for field: the
 reference's JSON + ArgParse surface (data paths, ``batch_size``,
 ``im_shape``, ``epochs``, ``lr_rate``, ``use_iso``) from the same JSON
-schema, with validation, plus the JAX package's own knobs.  The port's
-trainer runs on one device: ``mesh_batch`` other than 1 raises there.
+schema, with validation, plus the JAX package's own knobs.  ``mesh_batch``
+counts processes (one per card) where JAX counts the devices of one
+process: the port's trainer takes the process group's world size, or
+``<= 0`` for all of it.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ class TrainConfig:
     plateau_patience: int = 10
     plateau_factor: float = 0.01
     seed: int = 42
-    # No reference counterpart.  Data-parallel mesh axis size in the JAX
-    # package; the port's trainer takes 1 only.
+    # No reference counterpart.  Data-parallel mesh axis size: the world size
+    # of the process group (1 without one), or <= 0 for all of it.
     mesh_batch: int = 1
     checkpoint_every: int = 1
     keep_checkpoints: int = 3
@@ -106,8 +108,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--model_name", "-n", default="admm-tv_restorer",
         help="Name of the model to be saved",
     )
-    # Multi-process launch flags, parsed as the JAX package's CLI parses
-    # them; the port's trainer runs one process (ROADMAP Queue 1 item 14).
+    # Multi-process launch flags, as the JAX package's CLI parses them:
+    # rank 0's host:port, the world size and this process's rank (omitted,
+    # with --coordinator "env://", they come from torch's env:// variables).
     p.add_argument(
         "--coordinator", default=None,
         help="coordinator address (host:port) of a multi-process run",

@@ -15,9 +15,18 @@ What changed from the JAX trainer:
 * Checkpoints are ``torch.save`` files holding the model, the optimizer,
   the step and the epoch, with resume from the newest (Orbax in the JAX
   package).
-* One process, one device (the model's).  A data-parallel mesh
-  (``mesh_batch`` other than 1) and multi-process runs are not ported
-  (ROADMAP Queue 1 item 14) and raise.
+* Data parallelism is one process per card (JAX's ``mesh_batch=N`` is N
+  devices of one process): in a process group of world size W the trainer
+  takes ``mesh_batch`` W, or ``<= 0`` for all, and refuses any other value
+  with JAX's message.  Each rank steps on its shard of the global batch
+  (``DataLoader(process_count, process_index)``) and the ranks' gradients
+  are averaged by one flat all-reduce before ``optimizer.step()``: every
+  loss and metric is a batch mean of per-image values, the shards are equal
+  and no layer keeps batch statistics, so this is the global-batch step.
+  The epoch's metric sums are all-reduced once.  Only rank 0 writes the
+  CSV, TensorBoard and the checkpoints, each write followed by a barrier;
+  every rank reads them on resume.  With no process group it is one
+  process on the model's device.
 * The backward runs inside ``fp32_convs()``, as the forward's
   convolutions do: the card's convolutions stay at full fp32, as on the
   CPU.
@@ -32,8 +41,8 @@ import re
 import time
 from typing import Callable
 
-import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from admm_deconv_tpu_torch.metrics import gmsd_loss, mse, peak_snr, ssim_loss
@@ -43,6 +52,7 @@ from admm_deconv_tpu_torch.optim.plateau import ReduceLROnPlateau
 from admm_deconv_tpu_torch.train.config import TrainConfig
 from admm_deconv_tpu_torch.train.logging import TensorBoardLogger
 from admm_deconv_tpu_torch.train.prefetch import Prefetcher
+from admm_deconv_tpu_torch.utils.arrays import as_tensor
 from admm_deconv_tpu_torch.utils.precision import fp32_convs
 
 LOSSES: dict[str, Callable] = {
@@ -80,17 +90,19 @@ class Trainer:
     that holds the model's parameters."""
 
     def __init__(self, model: nn.Module, config: TrainConfig, loss_fn: Callable | None = None):
-        if config.mesh_batch != 1:
-            raise NotImplementedError(
-                f"mesh_batch={config.mesh_batch}: data-parallel training is not ported "
-                "to the PyTorch package yet (ROADMAP Queue 1 item 14); use mesh_batch=1"
+        grouped = dist.is_available() and dist.is_initialized()
+        self.world = dist.get_world_size() if grouped else 1
+        self.rank = dist.get_rank() if grouped else 0
+        if config.mesh_batch > 0 and config.mesh_batch != self.world:
+            raise ValueError(
+                "multi-process training requires the data mesh to span all devices: "
+                f"mesh_batch={config.mesh_batch} but device_count={self.world} (one process "
+                "per card: the device count is the process group's world size)"
             )
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "multi-process training is not ported to the PyTorch package yet "
-                "(ROADMAP Queue 1 item 14)"
-            )
+        # mesh_batch <= 0 ("all") is the world, too; a world of one all-reduces
+        # with itself only under a process group.
+        self.data_parallel = grouped
+        self.is_lead = self.rank == 0
         self.model = model
         self.config = config
         self.loss_fn = loss_fn if loss_fn is not None else LOSSES[config.loss]
@@ -114,9 +126,22 @@ class Trainer:
             loss = self.loss_fn(out, y)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if self.data_parallel:
+                self._average_gradients(state.model)
         state.optimizer.step()
         state.step += 1
         return self._accumulate(acc, loss, out, y)
+
+    @torch.no_grad()
+    def _average_gradients(self, model: nn.Module) -> None:
+        """The mean over ranks of each rank's gradient, by one all-reduce of
+        the gradients laid end to end."""
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        flat /= self.world
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     @torch.no_grad()
     def eval_step(self, model: nn.Module, x, y, acc: dict) -> dict:
@@ -130,6 +155,19 @@ class Trainer:
 
     def _zero_acc(self) -> dict:
         return {k: torch.zeros((), device=self.device) for k in ("loss", *METRICS)}
+
+    def _epoch_means(self, acc: dict, n: int) -> dict[str, float]:
+        """The epoch's metric means from the on-device sums: over the ranks
+        by one all-reduce, read on the host once."""
+        sums = torch.stack(list(acc.values()))
+        if self.data_parallel:
+            dist.all_reduce(sums)
+            sums /= self.world
+        return {k: float(v) / max(n, 1) for k, v in zip(acc, sums.tolist())}
+
+    def _barrier(self) -> None:
+        if self.data_parallel:
+            dist.barrier()
 
     # ---- state -------------------------------------------------------------
 
@@ -148,11 +186,9 @@ class Trainer:
             group["lr"] = lr
 
     def _to_device(self, x, y):
+        """A batch on the model's device; numpy's float64 as float32."""
         dev = self.device
-        return tuple(
-            (a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))).to(dev)
-            for a in (x, y)
-        )
+        return tuple(as_tensor(a, dev).to(dev) for a in (x, y))
 
     # ---- checkpointing -----------------------------------------------------
 
@@ -174,13 +210,14 @@ class Trainer:
         if not self.config.checkpointing:
             return None
         root = os.path.join(model_dir, "checkpoints")
-        os.makedirs(root, exist_ok=True)
         path = os.path.join(root, f"epoch_{epoch}.pt")
-        tmp = f"{path}.tmp"
-        torch.save(self._payload(state), tmp)
-        os.replace(tmp, path)
-        for old in self._epochs(root)[:-self.config.keep_checkpoints]:
-            os.remove(os.path.join(root, f"epoch_{old}.pt"))
+        if self.is_lead:
+            os.makedirs(root, exist_ok=True)
+            torch.save(self._payload(state), f"{path}.tmp")
+            os.replace(f"{path}.tmp", path)
+            for old in self._epochs(root)[:-self.config.keep_checkpoints]:
+                os.remove(os.path.join(root, f"epoch_{old}.pt"))
+        self._barrier()
         return path
 
     @staticmethod
@@ -196,7 +233,8 @@ class Trainer:
         if not self.config.checkpointing:
             return None
         best_root = os.path.abspath(os.path.join(model_dir, "best"))
-        os.makedirs(best_root, exist_ok=True)
+        if self.is_lead:
+            os.makedirs(best_root, exist_ok=True)
         name = (
             f"{self.config.model_name}-ep_{epoch}"
             f"-vloss_{eval_metrics.get('loss', float('nan')):.4f}"
@@ -204,11 +242,13 @@ class Trainer:
             f"-mse_{eval_metrics.get('mse', float('nan')):.6f}"
         )
         path = os.path.join(best_root, name)
-        torch.save(self._payload(state), f"{path}.tmp")
-        os.replace(f"{path}.tmp", path)
-        for prev in os.listdir(best_root):
-            if prev != name:
-                os.remove(os.path.join(best_root, prev))
+        if self.is_lead:
+            torch.save(self._payload(state), f"{path}.tmp")
+            os.replace(f"{path}.tmp", path)
+            for prev in os.listdir(best_root):
+                if prev != name:
+                    os.remove(os.path.join(best_root, prev))
+        self._barrier()
         return path
 
     @staticmethod
@@ -265,7 +305,8 @@ class Trainer:
         model_dir = model_dir or os.path.join(cfg.save_dir, cfg.model_name)
         os.makedirs(model_dir, exist_ok=True)
         history_path = os.path.join(model_dir, "train_eval_metrics_history.csv")
-        tb = TensorBoardLogger(os.path.join(model_dir, "logging")) if tensorboard else None
+        tb = (TensorBoardLogger(os.path.join(model_dir, "logging"))
+              if tensorboard and self.is_lead else None)
 
         start_epoch = 0
         if resume:
@@ -276,6 +317,7 @@ class Trainer:
         # A resumed run continues the recorded history and best-checkpoint
         # bar: completed rows reload from the CSV, the best validation loss
         # is their lowest, and replaying them restores the plateau state.
+        # Every rank reads it, so every rank takes the same decisions.
         best_val_loss = float("inf")
         history: list[dict[str, float]] = []
         if resume and start_epoch and os.path.exists(history_path):
@@ -308,14 +350,14 @@ class Trainer:
             for x, y in batches(train_loader):
                 acc = self.train_step(state, x, y, acc)
                 n_train += 1
-            train_metrics = {k: float(v) / max(n_train, 1) for k, v in acc.items()}
+            train_metrics = self._epoch_means(acc, n_train)
 
             acc = self._zero_acc()
             n_eval = 0
             for x, y in batches(eval_loader):
                 acc = self.eval_step(state.model, x, y, acc)
                 n_eval += 1
-            eval_metrics = {k: float(v) / max(n_eval, 1) for k, v in acc.items()}
+            eval_metrics = self._epoch_means(acc, n_eval)
 
             val_loss = eval_metrics.get("loss", float("inf"))
             new_lr = self.plateau.step(val_loss)
@@ -333,14 +375,16 @@ class Trainer:
             history.append(row)
             # Rewrite on the first row of this run (prunes partial rows left
             # after a crash), then append.
-            mode = "w" if first_row or epoch == start_epoch else "a"
-            with open(history_path, mode, newline="") as f:
-                writer = csv.DictWriter(f, fieldnames=list(history[0].keys()))
-                if mode == "w":
-                    writer.writeheader()
-                    writer.writerows(history)
-                else:
-                    writer.writerow(row)
+            if self.is_lead:
+                mode = "w" if first_row or epoch == start_epoch else "a"
+                with open(history_path, mode, newline="") as f:
+                    writer = csv.DictWriter(f, fieldnames=list(history[0].keys()))
+                    if mode == "w":
+                        writer.writeheader()
+                        writer.writerows(history)
+                    else:
+                        writer.writerow(row)
+            self._barrier()
 
             if tb is not None:
                 tb.log_scalars(train_metrics, epoch, prefix="train/")
@@ -355,13 +399,14 @@ class Trainer:
                 self.save_best(model_dir, state, epoch, eval_metrics)
                 best_val_loss = val_loss
 
-            log_fn(
-                f"[epoch {epoch}] "
-                + " ".join(f"train_{k}={v:.5f}" for k, v in train_metrics.items())
-                + " | "
-                + " ".join(f"eval_{k}={v:.5f}" for k, v in eval_metrics.items())
-                + f" | lr={new_lr:.2e} ({row['seconds']:.1f}s)"
-            )
+            if self.is_lead:
+                log_fn(
+                    f"[epoch {epoch}] "
+                    + " ".join(f"train_{k}={v:.5f}" for k, v in train_metrics.items())
+                    + " | "
+                    + " ".join(f"eval_{k}={v:.5f}" for k, v in eval_metrics.items())
+                    + f" | lr={new_lr:.2e} ({row['seconds']:.1f}s)"
+                )
 
         if tb is not None:
             tb.close()

@@ -81,8 +81,30 @@ Phases, in order; any failure raises and exits non-zero:
     against the CPU's on a small seeded problem; the 1080p TV-layer step
     with ``diff_mode="implicit"`` beside the unrolled remat step, ms/step
     and peak memory;
-17. utils on the card: solver-state save/load, ``profile_trace``, and which
+17. data: which of PIL, TensorBoard, g++, make and libpng the machine has;
+    the native PNG loader built from ``native/imagefeeder.cpp`` into
+    ``admm_deconv_tpu_torch/_build/`` (or why it did not build); the batch
+    of ``tests/fixtures`` on each path the machine has, native and PIL, held
+    bit for bit against a SHA-256 from the JAX package's same path (and the
+    native decode against PIL's where both run); the feeder's ms per batch;
+18. the train CLI (``scripts.train``) for one epoch of
+    ``configs/train_cfg.json`` from PNG files (``scripts.make_dataset``'s
+    AWGN-25 set of the fixtures, or the fixtures themselves where PIL
+    cannot write PNGs), its CSV row and checkpoints, a resume to epoch 2,
+    launches per batch, and ms per step fed by the feeder beside device
+    pairs;
+19. data-parallel training: a one-rank NCCL group (``env://``) and
+    ``Trainer(mesh_batch=0)`` beside the trainer without a group, the same
+    parameters after 3 steps, bit for bit;
+20. the demo CLI's ``run`` (``scripts.demo_deconv``) on its synthetic frames,
+    each of its six branches: PSNR beside the JAX package's, launches;
+21. utils on the card: solver-state save/load, ``profile_trace``, and which
     paths run under ``deterministic_mode()``.
+
+Besides, phase 4 solves a float64 numpy input with every solver (float32
+on the card, through its kernel) and measures a numpy pair with the
+metrics against the JAX package's values; phase 8 does the same for the
+tiled solver.
 
 Every path zeroes the kernels' launch counters just before it runs and
 checks them just after.
@@ -106,14 +128,16 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
 
 LAM, RHO = 0.0041, 0.021
 BENCH_SHAPE, BENCH_ITERS, REPEATS = (4, 1080, 1920, 3), 50, 4
 # The training paths' plane stacks: the bench flagship's and the production
-# crop's denoiser banks (5 branches x batch 2 x RGB), an odd shape, and the
+# crop's denoiser banks (5 branches x batch 2 x RGB), the train CLI's last
+# batch of one from the three fixtures (5 x 1 x RGB), an odd shape, and the
 # 1080p TV-layer step (batch 2 x RGB).  Both kernels are checked at these.
-BWD_SHAPES = [(30, 112, 112), (30, 256, 256), (3, 37, 101), (6, 1080, 1920)]
+BWD_SHAPES = [(30, 112, 112), (30, 256, 256), (15, 256, 256), (3, 37, 101), (6, 1080, 1920)]
 # The inference paths' plane stacks besides the 1080p batch-4 one: the
 # ttq_deep_512 scene (4 x 512^2 x RGB) and the blocks scenario (3 x 256^2 x
 # RGB).  The forward, prox-dual and composite kernels are checked at these.
@@ -164,6 +188,33 @@ FLAGSHIP_SHAPE, FLAGSHIP_REPEATS, FLAGSHIP_LAUNCHES = (2, 112, 112, 3), 8, 49
 TV_SHAPE, TV_ITERS, TV_REPEATS = (2, 1080, 1920, 3), 20, 4
 TRAIN_CFG = "configs/train_cfg.json"
 TRAINER_BATCHES = (4, 2)  # train, eval batches of the production-trainer epoch
+FIXTURES = "tests/fixtures"  # china, flower, hopper: 256^2 RGB PNGs
+# The JAX package on the CPU: SHA-256 of the float32 x batch of
+# ImageDataFeeder(FIXTURES, FIXTURES, ".png", (128, 128), (128, 128),
+# rng=np.random.default_rng(0), backend=...)[[0, 1, 2]] on each path (the
+# native path draws its crops from one 64-bit seed, PIL's from two
+# integers an image, and scales by 1/255 in another order).
+DATA_CROP = (128, 128)
+FIXTURE_BATCH_SHA256 = {
+    "native": "fafd3d24131bcae6836365c892d43be6db3ec6d1246921daff0c21aaf974ec6d",
+    "pil": "5eea011aeee5b0a4e49409550bc9934e5e98ab30113be72f7ac7f1ea0072b39a",
+}
+# The JAX package's metrics on the CPU of the seed-11 numpy pair
+# (tests/test_torch_metrics.py's numpy_pair).
+NUMPY_PAIR_JAX = {"peak_snr": 26.293628692626953, "ssim": 0.9848365783691406,
+                  "gmsd": 0.035629257559776306}
+DP_STEPS = 3  # data-parallel steps held bit for bit
+# The demo's branches (scripts/demo_deconv.py:143-184) and the JAX package's
+# PSNR of each on the CPU (synthetic_images(), 100 iterations, batch PSNR of
+# the clipped result): the JAX script's own calls, with prox_impl "pallas"
+# (its interpreted kernel) for bf16 state, which its CPU "auto" path lacks.
+# JAX's --auto on the CPU takes fp32 state (54.828896); its TPU path, bf16
+# state at check_every 8, gives 54.828594, as the card takes by the policy.
+DEMO_BRANCHES = {"plain": [], "adaptive": ["--adaptive"], "l1": ["--l1", "0.002"],
+                 "anderson": ["--anderson"], "auto": ["--auto"], "bf16_state": ["--bf16-state"]}
+DEMO_PSNR_JAX = {"plain": 54.55244064331055, "adaptive": 50.28718185424805,
+                 "l1": 51.116966247558594, "anderson": 56.75689697265625,
+                 "auto": 54.828895568847656, "bf16_state": 54.4243278503418}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -479,6 +530,26 @@ def phase_quality(dev) -> None:
         check(db >= floor, f"restored PSNR {db} below {floor}")
         bound = 1e-4 if sdt is None else 2 * envelope + 1e-3
         check(dev_cpu <= bound, f"card solve off the CPU solve by {dev_cpu} > {bound}")
+    numpy_pair_metrics()
+
+
+def numpy_pair_metrics() -> None:
+    """The metrics on a pair of numpy arrays: it goes to the card as
+    float32, and the values equal the JAX package's on the CPU."""
+    from admm_deconv_tpu_torch import metrics
+
+    rng = np.random.default_rng(11)
+    x = rng.random((2, 32, 32, 3)).astype(np.float32)
+    y = np.clip(x + 0.05 * rng.standard_normal(x.shape), 0, 1).astype(np.float32)
+    for name, want in NUMPY_PAIR_JAX.items():
+        got = getattr(metrics, name)(x.astype(np.float64), y.astype(np.float64))
+        check(got.device.type == "cuda" and got.dtype == torch.float32,
+              f"{name} of a numpy pair on {got.device} in {got.dtype}")
+        rel = abs(float(got) - want) / want
+        print(f"[quality] {name} of a float64 numpy pair (2, 32, 32, 3): {float(got):.7f} on "
+              f"{got.device} in {got.dtype}, JAX on the CPU {want:.7f}, rel {rel:.1e} "
+              f"(tolerance 1e-5: cuDNN sums in another order)")
+        check(rel <= 1e-5, f"{name} of a numpy pair off JAX's by {rel}")
 
 
 def phase_main_path(dev, gen) -> dict:
@@ -734,7 +805,7 @@ def phase_trainer(dev, seed: int) -> float:
     from admm_deconv_tpu_torch.models import build_model, init_parameters
     from admm_deconv_tpu_torch.train import Trainer, load_config
 
-    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_CFG))
+    cfg = load_config(os.path.join(REPO, TRAIN_CFG))
     n_train, n_eval = TRAINER_BATCHES
     train = training_pairs(seed, n_train, cfg.batch_size, cfg.im_shape)
     evals = training_pairs(seed + 1, n_eval, cfg.batch_size, cfg.im_shape)
@@ -787,6 +858,327 @@ def phase_trainer(dev, seed: int) -> float:
     print(f"[trainer] resumed at epoch 1 and trained on; train step {ms:.3f} ms/step "
           f"({len(x)} steps after one warm-up)")
     return ms
+
+
+def _importable(name: str) -> bool:
+    import importlib
+
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def phase_data() -> dict:
+    """The machine's image tools, the native loader built from the shared
+    source, and the fixtures' batch on each path the machine has (native,
+    PIL) held bit for bit to the JAX package's."""
+    import ctypes.util
+    import hashlib
+    import shutil
+    import warnings
+
+    from admm_deconv_tpu_torch.data import ImageDataFeeder, native
+
+    have = {"PIL": _importable("PIL"), "tensorboard": _importable("torch.utils.tensorboard"),
+            "g++": shutil.which("g++"), "make": shutil.which("make"),
+            "libpng": ctypes.util.find_library("png16") or ctypes.util.find_library("png"),
+            "png.h": os.path.isfile("/usr/include/png.h")}
+    print(f"[data] on this machine: {have}")
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+    root = os.path.join(REPO, FIXTURES)
+    if built:
+        print(f"[data] native loader {native.library_path().name}, built from native/"
+              f"imagefeeder.cpp by native/Makefile (CXXFLAGS {native.CXXFLAGS!r}) in "
+              f"{build_s:.2f} s")
+    else:
+        import subprocess as sp
+
+        try:
+            native._build()
+            reason = "the library built but does not load"
+        except (sp.CalledProcessError, OSError) as e:
+            reason = (getattr(e, "stderr", b"") or b"").decode(errors="replace")[-400:] or repr(e)
+        print(f"[data] native loader NOT available (libpng {have['libpng']}, g++ {have['g++']}): "
+              f"{reason.strip()}")
+    paths = [p for p, ok in (("native", built), ("pil", have["PIL"])) if ok]
+    check(bool(paths), "no PNG decoder on this machine: the native loader did not build and "
+                       "PIL is missing")
+    for path in paths:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # the feeder's fall back to PIL warns: fail on it
+            x, y = ImageDataFeeder(root, root, ".png", DATA_CROP, DATA_CROP,
+                                   rng=np.random.default_rng(0), backend=path)[[0, 1, 2]]
+        digest = hashlib.sha256(x.tobytes()).hexdigest()
+        print(f"[data] the {path} path: fixtures {x.shape} crop batch SHA-256 {digest} (the JAX "
+              f"package's {path} path: {FIXTURE_BATCH_SHA256[path]})")
+        check(digest == FIXTURE_BATCH_SHA256[path], f"the {path} batch differs from the JAX "
+                                                    f"package's")
+        check(np.array_equal(x, y), "x and y crops of the same files differ")
+    if len(paths) == 2:
+        from PIL import Image
+
+        files = sorted(os.path.join(root, f) for f in os.listdir(root) if f.endswith(".png"))
+        whole, _ = native.load_pair_batch(files, files, 256, 256, 0)
+        for i, f in enumerate(files):
+            with Image.open(f) as im:
+                u8 = np.asarray(im.convert("RGB"))
+            check(np.array_equal(whole[i], u8.astype(np.float32) * np.float32(1 / 255)),
+                  f"native decode of {f} differs from PIL's")
+        print("[data] native decode of the three fixtures equals PIL's, bit for bit")
+    path = paths[0]
+    print(f"[data] the feeder's backend=\"auto\" takes the {path} path")
+    loader_rng = np.random.default_rng(1)
+    feeder = ImageDataFeeder(root, root, ".png", (256, 256), (256, 256), rng=loader_rng,
+                             backend=path)
+    feeder[[0, 1]]
+    t0 = time.perf_counter()
+    for i in range(10):
+        feeder[[i % 3, (i + 1) % 3]]
+    feeder_ms = 1e3 * (time.perf_counter() - t0) / 10
+    print(f"[data] the {path} path: {feeder_ms:.3f} ms per batch of 2 x 256^2 (host clock, "
+          f"10 batches)")
+    return {"path": path, "pil": have["PIL"], "tensorboard": have["tensorboard"],
+            "feeder_ms": feeder_ms, "build_s": build_s}
+
+
+def _captured(fn, *args) -> str:
+    """Run ``fn(*args)``, print its standard output indented, return it."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"    | {line}")
+    return text
+
+
+def phase_cli_train(dev, seed: int, data: dict, trainer_ms: float) -> dict:
+    """The train CLI for one epoch of the production configuration from PNG
+    files, and a resume; then ms per step fed by the feeder."""
+    import csv
+    import warnings
+
+    from admm_deconv_tpu_torch.data import DataLoader, ImageDataFeeder
+    from admm_deconv_tpu_torch.models import build_model, init_parameters
+    from admm_deconv_tpu_torch.scripts import make_dataset, train
+    from admm_deconv_tpu_torch.train import Trainer, load_config
+    from admm_deconv_tpu_torch.train.prefetch import Prefetcher
+
+    fixtures = os.path.join(REPO, FIXTURES)
+    n_images = len([f for f in os.listdir(fixtures) if f.endswith(".png")])
+    with tempfile.TemporaryDirectory() as tmp:
+        if data["pil"]:
+            _captured(make_dataset.main, ["--train-src", fixtures, "--test-src", fixtures,
+                                          "--dest", os.path.join(tmp, "dsets")])
+            dset = os.path.join(tmp, "dsets", "awgn_25_25")
+            dirs = {f"{s}_{xy}": os.path.join(dset, s, xy) for s in ("train", "test")
+                    for xy in ("x", "y")}
+            for d in dirs.values():
+                check(len(os.listdir(d)) == n_images, f"make_dataset wrote {os.listdir(d)}")
+            source = "make_dataset's AWGN-25 pairs of the fixtures"
+        else:
+            dirs = {f"{s}_{xy}": fixtures for s in ("train", "test") for xy in ("x", "y")}
+            source = ("x = y = tests/fixtures (PIL is missing: make_dataset cannot write PNGs)")
+        with open(os.path.join(REPO, TRAIN_CFG)) as f:
+            cfg = json.load(f)
+        cfg |= {"train_data": {"x_path": dirs["train_x"], "y_path": dirs["train_y"]},
+                "eval_data": {"x_path": dirs["test_x"], "y_path": dirs["test_y"]},
+                "epochs": 1, "save_dir": os.path.join(tmp, "models")}
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        batches = -(-n_images // cfg["batch_size"])
+        argv = ["-c", cfg_path, "-n", "smoke"]
+        print(f"[cli_train] data: {source}, read by the {data['path']} loader")
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = _captured(train.main, argv)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts = read_counts()
+        fell_back = [str(w.message) for w in caught if "fell back to PIL" in str(w.message)]
+        want = expect_counts(fused_admm_stencil=FLAGSHIP_LAUNCHES * 2 * batches,
+                             stencil_bwd=FLAGSHIP_LAUNCHES * batches)
+        print(f"[cli_train] one epoch ({batches} train + {batches} eval batches of "
+              f"{cfg['batch_size']} x {tuple(cfg['im_shape'])}) in {epoch_s:.3f} s, model build "
+              f"and checkpoints included; launches {counts}")
+        check(counts == want, f"train CLI launches {counts} != {want}")
+        check(not fell_back, f"the feeder fell back from the native loader: {fell_back}")
+        model_dir = os.path.join(cfg["save_dir"], "smoke")
+        with open(os.path.join(model_dir, "train_eval_metrics_history.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == 1 and all(np.isfinite(float(v)) for v in rows[0].values()),
+              f"CSV rows {rows}")
+        check(os.listdir(os.path.join(model_dir, "checkpoints")) == ["epoch_0.pt"],
+              "epoch checkpoint")
+        check(len(os.listdir(os.path.join(model_dir, "best"))) == 1, "best checkpoint")
+        check(out.splitlines()[-1] == "DONE", "the train CLI's last line")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg | {"epochs": 2}, f)
+        out = _captured(train.main, argv)
+        with open(os.path.join(model_dir, "train_eval_metrics_history.csv"), newline="") as f:
+            epochs = [int(float(r["epoch"])) for r in csv.DictReader(f)]
+        check("resumed from epoch 1" in out and epochs == [0, 1], f"resume: CSV epochs {epochs}")
+        print(f"[cli_train] resumed from epoch 1 and trained epoch 2: CSV epochs {epochs}")
+
+        # ms per step fed by the feeder (prefetch thread, drop-last batches
+        # of 2) beside phase_trainer's steps on device-resident pairs.
+        tc = load_config(cfg_path)
+        model = build_model(tc.model, dataclasses.asdict(tc), device=dev)
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        trainer = Trainer(model, tc)
+        state = trainer.init_state()
+        loader = DataLoader(ImageDataFeeder(dirs["train_x"], dirs["train_y"], ".png", tc.im_shape,
+                                            tc.im_shape, rng=np.random.default_rng(seed)),
+                            batch_size=tc.batch_size, shuffle=True, drop_last=True,
+                            rng=np.random.default_rng(seed + 1))
+        passes = 9
+
+        def feed():
+            for _ in range(passes):
+                yield from loader
+
+        steps = iter(Prefetcher(feed(), transform=trainer._to_device, depth=tc.prefetch_batches))
+        trainer.train_step(state, *next(steps), trainer._zero_acc())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for x, y in steps:
+            trainer.train_step(state, x, y, trainer._zero_acc())
+            n += 1
+        torch.cuda.synchronize()
+        fed_ms = 1e3 * (time.perf_counter() - t0) / n
+    print(f"[cli_train] train step fed by the {data['path']} loader through the prefetch "
+          f"thread: {fed_ms:.3f} ms/step ({n} steps after one warm-up); on device-resident "
+          f"pairs (phase_trainer): {trainer_ms:.3f} ms/step; the loader alone "
+          f"{data['feeder_ms']:.3f} ms per batch")
+    return {"launches": counts, "epoch_s": epoch_s, "fed_ms": fed_ms, "batches": batches}
+
+
+def phase_data_parallel(dev, seed: int) -> dict:
+    """Trainer(mesh_batch=0) in a one-rank NCCL group beside the trainer
+    without a group, from the same parameters on the same batches."""
+    import socket
+
+    from admm_deconv_tpu_torch.models import build_model, init_parameters
+    from admm_deconv_tpu_torch.parallel import distributed
+    from admm_deconv_tpu_torch.train import Trainer, load_config
+
+    check(not torch.distributed.is_initialized(), "a process group is left from an earlier phase")
+    cfg = load_config(os.path.join(REPO, TRAIN_CFG))
+    cfg.checkpointing = False
+    pairs = training_pairs(seed + 3, DP_STEPS, cfg.batch_size, cfg.im_shape)
+
+    def run(mesh_batch):
+        model = build_model(cfg.model, dataclasses.asdict(cfg), device=dev)
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        trainer = Trainer(model, dataclasses.replace(cfg, mesh_batch=mesh_batch))
+        state = trainer.init_state()
+        batches = [trainer._to_device(x, y) for x, y in pairs]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x, y in batches:
+            trainer.train_step(state, x, y, trainer._zero_acc())
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+        return trainer, [p.detach().clone() for p in model.parameters()], ms, read_counts()
+
+    env = {"MASTER_ADDR": "127.0.0.1", "WORLD_SIZE": "1", "RANK": "0"}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        env["MASTER_PORT"] = str(s.getsockname()[1])
+    saved_env = {k: os.environ.get(k) for k in env}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, alone, ms_alone, _ = run(1)
+        os.environ.update(env)
+        distributed.initialize()
+        check(torch.distributed.get_backend() == "nccl"
+              and torch.distributed.get_world_size() == 1, "a one-rank NCCL group")
+        # NCCL sets its communicator up at the first collective: do that here,
+        # at the gradients' size, so that the timed steps see the steady cost.
+        torch.distributed.all_reduce(torch.zeros(sum(a.numel() for a in alone), device=dev))
+        torch.cuda.synchronize()
+        trainer, grouped, ms_grouped, counts = run(0)
+        check(trainer.data_parallel and trainer.world == 1, "the trainer joined the group")
+        torch.distributed.destroy_process_group()
+        want = expect_counts(fused_admm_stencil=FLAGSHIP_LAUNCHES * DP_STEPS,
+                             stencil_bwd=FLAGSHIP_LAUNCHES * DP_STEPS)
+        check(counts == want, f"data-parallel launches {counts} != {want}")
+        equal = all(torch.equal(a, b) for a, b in zip(alone, grouped))
+        worst = max(float((a - b).abs().max()) for a, b in zip(alone, grouped))
+        print(f"[data_parallel] {cfg.model} {cfg.batch_size} x {cfg.im_shape}, {DP_STEPS} steps: "
+              f"Trainer(mesh_batch=0) in a one-rank NCCL group (env://) {ms_grouped:.3f} "
+              f"ms/step, without a group {ms_alone:.3f} ms/step; parameters equal bit for bit: "
+              f"{equal} (max |d| {worst:.3e}); launches {counts}")
+        if not equal:
+            _, again, _, _ = run(1)
+            spread = max(float((a - b).abs().max()) for a, b in zip(alone, again))
+            print(f"[data_parallel] why: two runs without a group differ by {spread:.3e}, so the "
+                  f"step itself is not deterministic on this card")
+            check(spread > 0 and worst <= spread, "the grouped trainer differs from the trainer "
+                                                 "without a group beyond the step's own spread")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"ms": ms_grouped, "alone_ms": ms_alone, "equal": equal, "launches": counts}
+
+
+def phase_demo(dev) -> dict:
+    """The demo CLI's run() on its synthetic frames, each of its six
+    branches: PSNR beside the JAX package's, launches."""
+    from admm_deconv_tpu_torch import peak_snr
+    from admm_deconv_tpu_torch.scripts import demo_deconv
+
+    imgs = demo_deconv.synthetic_images()
+    ref = np.stack(imgs)
+    stencil = "fused_admm_stencil_mixed" if _policy().bf16_state_on_tpu else "fused_admm_stencil"
+    exact = {"plain": {"fused_admm_stencil": 99}, "bf16_state": {"fused_admm_stencil_mixed": 99},
+             "l1": {"stencil_composite": 99}, "anderson": {"prox_dual": 99}}
+    reached = {"adaptive": ("prox_dual",), "auto": (stencil, "prox_dual")}
+    out = {}
+    for name, argv in DEMO_BRANCHES.items():
+        p = demo_deconv.parser()
+        args = p.parse_args(argv)
+        demo_deconv.check_args(p, args)
+        reset_counts()
+        restored, m = demo_deconv.run(args, imgs)
+        counts = read_counts()
+        db = peak_snr(restored, ref)  # a numpy pair: on the card, as float32
+        check(db.device.type == "cuda", "the demo's PSNR ran on the card")
+        db = float(db)
+        if name in exact:
+            ok = counts == expect_counts(**exact[name])
+        else:
+            ok = all(counts[k] > 0 for k in reached[name]) and all(
+                v == 0 for k, v in counts.items() if k not in reached[name])
+        print(f"[demo] {name:10s} ({' '.join(argv) or 'no flags'}): PSNR {db:.5f} dB, JAX on the "
+              f"CPU {DEMO_PSNR_JAX[name]:.5f} (|d| {abs(db - DEMO_PSNR_JAX[name]):.5f}, bound "
+              f"0.01); {m['seconds']:.3f} s{m['extra']}; per image "
+              f"{[round(v, 2) for v in m['blurred_psnr']]} -> "
+              f"{[round(v, 2) for v in m['restored_psnr']]} dB; launches {counts}")
+        check(restored.shape == ref.shape and np.isfinite(restored).all(), f"demo {name} output")
+        check(ok, f"demo {name} launches {counts}")
+        check(abs(db - DEMO_PSNR_JAX[name]) <= 0.01, f"demo {name} PSNR {db} off JAX's")
+        out[name] = {"psnr": db, "s": m["seconds"], "launches": counts}
+    return out
 
 
 def phase_tv_layer(dev) -> dict:
@@ -1213,6 +1605,19 @@ def phase_tiled(dev) -> dict:
     floor = QUALITY_FLOORS["tv_deconvolve fp32"]
     print(f"[tiled] blocks scenario, 100 iterations: PSNR {db:.5f} dB (floor {floor})")
     check(db >= floor, f"tiled blocks PSNR {db} below {floor}")
+    reset_counts()
+    x64 = tiled_tv_deconvolve(blurred.astype(np.float64), psf=bpsf.astype(np.float64), lam=LAM,
+                              rho=RHO, iters=10, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[float64] tiled_tv_deconvolve: a float64 numpy y solves to {x64.dtype} on "
+          f"{x64.device}; launches {counts}")
+    check(x64.dtype == torch.float32 and x64.device.type == "cuda", "tiled float64 numpy input")
+    check(counts == expect_counts(stencil_halo=9), f"tiled float64 launches {counts}")
+    check(torch.equal(x64, tiled_tv_deconvolve(torch.from_numpy(blurred).to(dev),
+                                               psf=torch.from_numpy(bpsf).to(dev), lam=LAM,
+                                               rho=RHO, iters=10, mesh=mesh)),
+          "tiled: the float64 array's solve differs from the float32 tensor's")
 
     # The tiled Anderson solver beside the single-device one: every outer
     # step, and every 8th (6 Q2-4 launches a block).
@@ -1581,6 +1986,56 @@ def phase_quality_solvers(dev) -> None:
         db = float(peak_snr(torch.clamp(x, 0, 1), ref))
         print(f"[quality] {name}: PSNR {db:.5f} dB (floor {QUALITY_FLOORS[name]})")
         check(db >= QUALITY_FLOORS[name], f"{name} PSNR {db} below {QUALITY_FLOORS[name]}")
+    float64_numpy_inputs(dev)
+
+
+def float64_numpy_inputs(dev) -> None:
+    """Every solver on numpy's default float64: the input goes to the card
+    as float32, through the solver's kernel, and the result equals the
+    solve of the float32 tensor."""
+    import admm_deconv_tpu_torch as adt
+
+    _, blurred, psf = blocks_scenario()
+    y64, p64 = blurred.astype(np.float64), psf.astype(np.float64)
+    kw = {"lam": LAM, "rho": RHO}
+    ckw = {k: v for k, v in COMPOSITE_KW.items() if k != "x_bounds"}
+    stencil = "fused_admm_stencil_mixed" if _policy().bf16_state_on_tpu else "fused_admm_stencil"
+    cases = (
+        ("tv_deconvolve", lambda y, p: adt.tv_deconvolve(y, p, iters=10, **kw),
+         {"fused_admm_stencil": 9}),
+        ("tv_deconvolve_adaptive", lambda y, p: adt.tv_deconvolve_adaptive(
+            y, p, max_iters=16, check_every=8, eps_abs=0.0, eps_rel=0.0, **kw)[0],
+         {"fused_admm_stencil": 12, "prox_dual": 4}),
+        ("solve_auto", lambda y, p: adt.solve_auto(y, p, iters=10, **kw)[0],
+         {stencil: 8, "prox_dual": 2}),
+        ("tv_deconvolve_anderson", lambda y, p: adt.tv_deconvolve_anderson(y, p, iters=9, **kw)[0],
+         {"prox_dual": 8}),
+        ("tv_deconvolve_implicit", lambda y, p: adt.tv_deconvolve_implicit(y, p, iters=8, **kw),
+         {"prox_dual": 8}),
+        ("composite_tv_deconvolve", lambda y, p: adt.composite_tv_deconvolve(
+            y, p, iters=10, x_bounds=(0.0, 1.0), **ckw), {"stencil_composite": 9}),
+        ("composite_tv_deconvolve_adaptive (plain torch, no kernel)",
+         lambda y, p: adt.composite_tv_deconvolve_adaptive(y, p, max_iters=4, **ckw)[0], {}),
+    )
+    y32 = torch.from_numpy(blurred).to(dev)
+    p32 = torch.from_numpy(psf).to(dev)
+    for name, solve, launches in cases:
+        reset_counts()
+        x = solve(y64, p64)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        same = bool(torch.equal(x, solve(y32, p32)))
+        print(f"[float64] {name}: a float64 numpy y {y64.shape} solves to {x.dtype} on {x.device}; "
+              f"launches {counts}; equal to the float32 tensor's solve: {same}")
+        check(x.dtype == torch.float32 and x.device.type == "cuda", f"{name} of float64 numpy")
+        check(counts == expect_counts(**launches), f"{name} float64 launches {counts}")
+        check(same, f"{name}: the float64 array's solve differs from the float32 tensor's")
+
+
+def _policy():
+    from admm_deconv_tpu_torch.ops.policy import policy
+
+    return policy()
 
 
 def phase_anderson(dev) -> dict:
@@ -2044,6 +2499,10 @@ def main() -> None:
     phase_train_parity(dev, args.seed)
     flagship = phase_flagship(dev, args.seed)
     trainer_ms = phase_trainer(dev, args.seed)
+    data = phase_data()
+    cli = phase_cli_train(dev, args.seed, data, trainer_ms)
+    dp = phase_data_parallel(dev, args.seed)
+    demo = phase_demo(dev)
     tv = phase_tv_layer(dev)
     times = phase_kernel_times(dev, gen)
     phase_train_profile(flagship, tv)
@@ -2076,6 +2535,11 @@ def main() -> None:
           f"{aa_over['history_bytes'] / 1e9:.3f} GB; "
           + "; ".join(f"ttq_1080p {k}: {v['iterations']} it, {v['s']:.4f} s (adaptive "
                       f"{v['adaptive_s']:.4f} s)" for k, v in anderson.items() if "adaptive_s" in v))
+    print(f"[summary] data path {data['path']} ({data['feeder_ms']:.3f} ms per batch); train CLI "
+          f"epoch {cli['epoch_s']:.3f} s, {cli['fed_ms']:.3f} ms/step fed by the loader against "
+          f"{trainer_ms:.3f} on device pairs; data-parallel world 1 {dp['ms']:.3f} ms/step "
+          f"(without a group {dp['alone_ms']:.3f}), parameters equal: {dp['equal']}; demo PSNR: "
+          + ", ".join(f"{k} {v['psnr']:.4f}" for k, v in demo.items()))
     print(f"[summary] implicit TV-layer step {implicit['ms']:.3f} ms, peak "
           f"{implicit['peak'] / 1e9:.3f} GB; unrolled remat {implicit['unrolled_ms']:.3f} ms, "
           f"peak {implicit['unrolled_peak'] / 1e9:.3f} GB")
@@ -2121,9 +2585,29 @@ def main() -> None:
     by_kernel["fused_admm_stencil_halo"]["launches_by_path"] = {
         "tiled anderson 49 it aa_interval=8":
             tiled[f"tiled anderson m={ANDERSON_M} aa_interval={AA_INTERVAL}"]["launches"]}
-    for name in ("fused_admm_stencil", "fused_prox_dual", "fused_admm_stencil_halo"):
+    # This slice's paths: the train CLI's epoch, the data-parallel steps and
+    # the demo's branches, each read just after it ran.
+    by_kernel["fused_admm_stencil"]["launches_by_path"] |= {
+        "train CLI epoch": cli["launches"]["fused_admm_stencil"],
+        f"data-parallel {DP_STEPS} steps": dp["launches"]["fused_admm_stencil"],
+        "demo plain": demo["plain"]["launches"]["fused_admm_stencil"]}
+    by_kernel["stencil_bwd"]["launches_by_path"] = {
+        "train CLI epoch": cli["launches"]["stencil_bwd"],
+        f"data-parallel {DP_STEPS} steps": dp["launches"]["stencil_bwd"]}
+    demo_stencil = "fused_admm_stencil_mixed" if _policy().bf16_state_on_tpu \
+        else "fused_admm_stencil"
+    by_kernel["fused_admm_stencil_mixed"]["launches_by_path"] = {
+        "demo --bf16-state": demo["bf16_state"]["launches"]["fused_admm_stencil_mixed"]}
+    by_kernel[demo_stencil]["launches_by_path"]["demo --auto"] = \
+        demo["auto"]["launches"][demo_stencil]
+    by_kernel["fused_admm_stencil_composite"]["launches_by_path"] = {
+        "demo --l1": demo["l1"]["launches"]["stencil_composite"]}
+    by_kernel["fused_prox_dual"]["launches_by_path"] |= {
+        f"demo {k}": demo[k]["launches"]["prox_dual"] for k in ("adaptive", "anderson", "auto")}
+    for name in ("fused_admm_stencil", "fused_admm_stencil_mixed", "stencil_bwd",
+                 "fused_prox_dual", "fused_admm_stencil_composite", "fused_admm_stencil_halo"):
         check(all(v > 0 for v in by_kernel[name]["launches_by_path"].values()),
-              f"{name} was not launched on an Anderson or implicit path")
+              f"{name} was not launched on one of its paths: {by_kernel[name]}")
     for entry, key in ((record["kernels"][-2], "composite_bf16"),
                        (record["kernels"][-1], "halo_bf16")):
         bf16 = times[key]

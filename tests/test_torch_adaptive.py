@@ -290,3 +290,28 @@ def test_adaptive_lowers_the_objective(scene):
     x, _ = _port(y, psf, **{**KW, "check_every": 8})
     yt, pt = torch.from_numpy(y), torch.from_numpy(psf)
     assert float(tv_objective(x, yt, pt, KW["lam"])) < float(tv_objective(yt, yt, pt, KW["lam"]))
+
+
+@pytest.mark.parametrize("entry", ["tv_deconvolve_adaptive", "solve_auto",
+                                   "composite_tv_deconvolve_adaptive"])
+def test_adaptive_solvers_refuse_a_gradient(entry):
+    """JAX's adaptive solvers run a ``while_loop``, which ``jax.grad``
+    refuses; the port's refuse an input that asks for a gradient rather than
+    record a graph over every iteration, and solve once it is detached."""
+    import admm_deconv_tpu_torch as adt
+
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy(rng.random((1, 16, 16, 3)).astype(np.float32))
+    psf = torch.full((3, 3), 1 / 9)
+    kw = {"max_iters": 4} if entry != "solve_auto" else {"iters": 4}
+    fn = getattr(adt, entry)
+    with pytest.raises(ValueError, match=f"{entry} is an inference path"):
+        fn(y.clone().requires_grad_(), psf=psf, **kw)
+    lam_kw = {"lam_tv": torch.tensor(0.01, requires_grad=True)} if "composite" in entry \
+        else {"lam": torch.tensor(0.01, requires_grad=True)}
+    with pytest.raises(ValueError, match="not differentiable"):
+        fn(y, psf=psf, **lam_kw, **kw)
+    with torch.no_grad():
+        x, _ = fn(y.clone().requires_grad_(), psf=psf, **kw)
+    x2, _ = fn(y, psf=psf, **kw)
+    assert not x2.requires_grad and torch.equal(x, x2)

@@ -207,6 +207,51 @@ def test_port_solver_family_runs_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_port_data_and_scripts_run_with_jax_blocked(tmp_path):
+    """``data`` and the three entry points import without jax; the native
+    loader builds into the directory it is given and loads that library,
+    never the tracked ``native/build/libimagefeeder.so``; the demo's
+    ``run`` solves on the CPU; no kernel is built."""
+    proc = _run(
+        "import sys, ctypes\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "opened = []\n"
+        "_cdll = ctypes.CDLL.__init__\n"
+        "def cdll(self, name, *a, **k):\n"
+        "    opened.append(str(name))\n"
+        "    _cdll(self, name, *a, **k)\n"
+        "ctypes.CDLL.__init__ = cdll\n"
+        "import admm_deconv_tpu_torch.data as data\n"
+        "from admm_deconv_tpu_torch.data import native\n"
+        "from admm_deconv_tpu_torch.scripts import demo_deconv, make_dataset, train\n"
+        "from admm_deconv_tpu_torch.ops.kernels import stencil_kernels as sk\n"
+        "from pathlib import Path\n"
+        f"native.BUILD_DIR = Path({str(tmp_path)!r})\n"
+        "assert native.available()\n"
+        "fx = 'tests/fixtures'\n"
+        "x, y = data.ImageDataFeeder(fx, fx, '.png', (64, 64), (64, 64), backend='native',\n"
+        "                            rng=np.random.default_rng(0))[[0, 1, 2]]\n"
+        "assert x.shape == (3, 64, 64, 3) and np.array_equal(x, y)\n"
+        "assert len(data.__all__) == 10 and all(hasattr(data, n) for n in data.__all__)\n"
+        "tracked = (Path('native') / 'build' / 'libimagefeeder.so').resolve()\n"
+        "assert opened and all(Path(p).resolve() != tracked for p in opened), opened\n"
+        "assert all(Path(p).parent == Path(native.BUILD_DIR) for p in opened), opened\n"
+        "args = demo_deconv.parser().parse_args(['--iters', '3', '--device', 'cpu'])\n"
+        "restored, m = demo_deconv.run(args, demo_deconv.synthetic_images(n=1, size=32))\n"
+        "assert restored.shape == (1, 32, 32, 3) and np.isfinite(m['mean_ssim'])\n"
+        "mods = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "        or m == 'admm_deconv_tpu' or m.startswith('admm_deconv_tpu.')]\n"
+        "assert mods == ['jax'], mods\n"
+        "for fn in (sk._kernel_fn, sk._bwd_kernel_fn, sk._composite_kernel_fn):\n"
+        "    assert fn.cache_info().currsize == 0, 'kernel built on CPU'\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_refuses_without_cuda():
     proc = _run(["chip_smoke.py"])
     assert proc.returncode != 0

@@ -110,3 +110,49 @@ def test_symmetric_pad_matches_numpy(images, pads):
 def test_gmsd_of_identical_images_is_zero(images):
     x, _ = images
     assert float(tm.gmsd(_t(x), _t(x))) == 0.0
+
+
+@pytest.fixture(scope="module")
+def numpy_pair():
+    """(2, 32, 32, 3) float32 pair from seed 11."""
+    rng = np.random.default_rng(11)
+    x = rng.random((2, 32, 32, 3)).astype(np.float32)
+    y = np.clip(x + 0.05 * rng.standard_normal(x.shape), 0, 1).astype(np.float32)
+    return x, y
+
+
+NUMPY_METRICS = ["peak_snr", "mse", "ssim", "ssim_loss", "ssim_loss_fast", "gmsd", "gmsd_loss"]
+
+
+@pytest.mark.parametrize("name", NUMPY_METRICS)
+def test_metric_takes_numpy_beside_a_tensor(numpy_pair, name):
+    """A numpy argument beside a tensor takes the tensor's device and dtype,
+    on either side, and the value equals JAX's on the same arrays."""
+    x, y = numpy_pair
+    fn = getattr(tm, name)
+    jfn = (lambda a, b: jnp.mean((a - b) ** 2)) if name == "mse" else getattr(jm, name)
+    want = float(jfn(jnp.asarray(x), jnp.asarray(y)))
+    for got in (fn(_t(x), y), fn(x, _t(y))):
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        _close(got, want)
+    got64 = fn(_t(x).double(), y)
+    assert got64.dtype == torch.float64
+    _close(got64, want)
+
+
+@pytest.mark.parametrize("name", NUMPY_METRICS)
+def test_metric_sends_a_numpy_pair_to_the_card(numpy_pair, name, monkeypatch):
+    """Two numpy arguments go to the card as float32, as the solvers' inputs
+    do: with no CUDA device the call raises the solvers' error, and with the
+    card's place taken by the CPU a float64 pair gives JAX's float32 value."""
+    from admm_deconv_tpu_torch.utils import arrays
+
+    x, y = numpy_pair
+    fn = getattr(tm, name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="goes to the CUDA device"):
+        fn(x, y)
+    monkeypatch.setattr(arrays, "default_device", lambda: torch.device("cpu"))
+    got = fn(x.astype(np.float64), y.astype(np.float64))
+    assert got.dtype == torch.float32
+    _close(got, fn(_t(x), _t(y)), rtol=0, atol=0)

@@ -355,3 +355,22 @@ def test_state_from_numpy_defaults_to_the_card(problem):
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         state_from_numpy(sj)
     assert all(t.device.type == "cpu" for t in state_from_numpy(sj, device="cpu"))
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_float64_numpy_input_solves_to_float32(problem, entry, monkeypatch):
+    """numpy's default float64 goes to the card as float32, as JAX (x64 off)
+    makes it: with the card's place taken by the CPU, every entry point
+    returns float32."""
+    from admm_deconv_tpu_torch.utils import arrays
+
+    y, psf = problem
+    y64 = y.astype(np.float64)
+    assert arrays.as_tensor(y64, device="cpu").dtype == torch.float32
+    assert arrays.as_tensor(y64.astype(np.float16), device="cpu").dtype == torch.float32
+    assert arrays.as_tensor((y * 255).astype(np.uint8), device="cpu").dtype == torch.uint8
+    monkeypatch.setattr(arrays, "default_device", lambda: torch.device("cpu"))
+    out = _entry_points()[entry](y64, psf)
+    assert out.dtype == torch.float32 and out.device.type == "cpu" and out.shape == y.shape
+    torch.testing.assert_close(out, _entry_points()[entry](torch.from_numpy(y), psf),
+                               rtol=0, atol=1e-6)

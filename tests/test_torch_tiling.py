@@ -428,3 +428,27 @@ def test_distributed_helpers_on_one_rank(monkeypatch, meshes):
     assert distributed.local_batch_slice(8) == slice(4, 8)
     with pytest.raises(ValueError, match="global batch 7 must divide process count 2"):
         distributed.local_batch_slice(7)
+
+
+@pytest.mark.parametrize("solver", ["tiled_tv_deconvolve", "tiled_composite_tv_deconvolve"])
+def test_tiled_solvers_refuse_a_gradient(problem, meshes, solver):
+    """``jax.grad`` through the JAX package's tiled solvers raises; the
+    port's refuse an input that asks for a gradient instead of returning a
+    constant, and still solve it under ``no_grad`` or once detached."""
+    y, psf = problem
+    fn = {"tiled_tv_deconvolve": tiled_tv_deconvolve,
+          "tiled_composite_tv_deconvolve": tiled_composite_tv_deconvolve}[solver]
+    lam = {"lam": torch.tensor(0.05, requires_grad=True)} if solver == "tiled_tv_deconvolve" \
+        else {"lam_tv": torch.tensor(0.05, requires_grad=True)}
+    with pytest.raises(ValueError, match=f"{solver} is an inference path"):
+        _port(y, psf, meshes[0], solver=fn, iters=4, **lam)
+    with pytest.raises(ValueError, match="not differentiable"):
+        fn(torch.from_numpy(y).requires_grad_(), psf=torch.from_numpy(psf), mesh=meshes[0],
+           iters=4)
+    with torch.no_grad():
+        x = _port(y, psf, meshes[0], solver=fn, iters=4, **lam)
+    x2 = _port(y, psf, meshes[0], solver=fn, iters=4, **{k: 0.05 for k in lam})
+    assert not x2.requires_grad and torch.equal(x, x2)
+    # numpy's float64 goes to the mesh's device as float32, as JAX makes it.
+    x64 = fn(y.astype(np.float64), psf=psf, mesh=meshes[0], iters=4, **{k: 0.05 for k in lam})
+    assert x64.dtype == torch.float32 and torch.equal(x64, x2)

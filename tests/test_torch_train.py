@@ -228,8 +228,15 @@ def test_restore_best_takes_lowest_loss(tmp_path):
 
 
 def test_trainer_rejects_data_parallel():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        Trainer(ADMMDeconv(), TrainConfig(mesh_batch=2))
+    """A ``mesh_batch`` that differs from the world size (1 with no process
+    group) raises JAX's message; ``<= 0`` means all of it."""
+    for mesh_batch in (2, 8):
+        with pytest.raises(ValueError, match="requires the data mesh to span all devices: "
+                                             f"mesh_batch={mesh_batch} but device_count=1"):
+            Trainer(ADMMDeconv(), TrainConfig(mesh_batch=mesh_batch))
+    for mesh_batch in (0, -1, 1):
+        trainer = Trainer(ADMMDeconv(), TrainConfig(mesh_batch=mesh_batch))
+        assert (trainer.world, trainer.rank, trainer.data_parallel) == (1, 0, False)
 
 
 def test_prefetcher_order_errors_and_early_exit():
