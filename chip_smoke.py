@@ -99,7 +99,11 @@ Phases, in order; any failure raises and exits non-zero:
 20. the demo CLI's ``run`` (``scripts.demo_deconv``) on its synthetic frames,
     each of its six branches: PSNR beside the JAX package's, launches;
 21. utils on the card: solver-state save/load, ``profile_trace``, and which
-    paths run under ``deterministic_mode()``.
+    paths run under ``deterministic_mode()``;
+22. the multi-card path at one rank: ``chip_smoke_multi.py --world 1 --size
+    cut`` as a subprocess (its launcher, ``env://``, a one-rank NCCL group
+    and every phase of the multi-card run at T = 1, at full width with the
+    depth cut); its result line and its launch counts.
 
 Besides, phase 4 solves a float64 numpy input with every solver (float32
 on the card, through its kernel) and measures a numpy pair with the
@@ -136,8 +140,17 @@ BENCH_SHAPE, BENCH_ITERS, REPEATS = (4, 1080, 1920, 3), 50, 4
 # The training paths' plane stacks: the bench flagship's and the production
 # crop's denoiser banks (5 branches x batch 2 x RGB), the train CLI's last
 # batch of one from the three fixtures (5 x 1 x RGB), an odd shape, and the
-# 1080p TV-layer step (batch 2 x RGB).  Both kernels are checked at these.
-BWD_SHAPES = [(30, 112, 112), (30, 256, 256), (15, 256, 256), (3, 37, 101), (6, 1080, 1920)]
+# 1080p TV-layer step (batch 2 x RGB); chip_smoke_multi.py's one-process
+# step on the global batch of 2 a rank at worlds 2 and 4 (5 x 4 and 5 x 8 x
+# RGB at 256^2) and its dryrun trainer's batch of 1 a rank and of the world
+# in one process (32^2).  Both kernels are checked at these.
+BWD_SHAPES = [(30, 112, 112), (30, 256, 256), (15, 256, 256), (3, 37, 101), (6, 1080, 1920),
+              (60, 256, 256), (120, 256, 256), (3, 32, 32), (6, 32, 32), (12, 32, 32)]
+# chip_smoke_multi.py's one-card solves besides the 1080p batch 4: the 4K
+# frame, a 2-frame 4K batch, and dryrun_multichip's scenes at worlds 1, 2
+# and 4 (2 x 8W x 32 x RGB, and 2 x 4W x 32 x RGB for its data x tile case).
+# The forward, prox-dual and composite kernels are checked at these.
+MULTI_SOLVE_SHAPES = [(3, 2160, 3840), (6, 2160, 3840), (6, 8, 32), (6, 32, 32), (6, 16, 32)]
 # The inference paths' plane stacks besides the 1080p batch-4 one: the
 # ttq_deep_512 scene (4 x 512^2 x RGB) and the blocks scenario (3 x 256^2 x
 # RGB).  The forward, prox-dual and composite kernels are checked at these.
@@ -145,7 +158,7 @@ INFERENCE_SHAPES = [(12, 512, 512), (9, 256, 256)]
 # The forward kernel's further shapes: the TPU kernel's 1-, 2- and 3-row-block
 # shapes and the 1080p batch-4 solve.
 KERNEL_SHAPES = [(2, 24, 128), (1, 256, 2048), (1, 384, 2048), (12, 1080, 1920),
-                 *INFERENCE_SHAPES, *BWD_SHAPES]
+                 *INFERENCE_SHAPES, *BWD_SHAPES, *MULTI_SOLVE_SHAPES]
 KERNEL_SOURCES = ("stencil_fwd", "stencil_bwd", "prox_dual", "stencil_composite",
                   "stencil_halo")
 CSRC = "admm_deconv_tpu_torch/csrc"
@@ -157,14 +170,22 @@ TPU_PROX_KERNELS = "admm_deconv_tpu/ops/pallas/prox_kernels.py"
 # problem whose gradients are held against the CPU's.
 IMPLICIT_GRAD_SHAPE = (2, 48, 64, 3)
 PROX_DUAL_SHAPES = [(12, 1080, 1920), *INFERENCE_SHAPES, (3, 37, 101), (6, 1080, 1920),
-                    (IMPLICIT_GRAD_SHAPE[0] * IMPLICIT_GRAD_SHAPE[3], *IMPLICIT_GRAD_SHAPE[1:3])]
+                    (IMPLICIT_GRAD_SHAPE[0] * IMPLICIT_GRAD_SHAPE[3], *IMPLICIT_GRAD_SHAPE[1:3]),
+                    *MULTI_SOLVE_SHAPES]
 PROX_DUAL_SCALAR_SHAPES = [(2, 3, 5, 7)]
-COMPOSITE_SHAPES = [(12, 1080, 1920), *INFERENCE_SHAPES, (3, 37, 101), (30, 112, 112)]
+COMPOSITE_SHAPES = [(12, 1080, 1920), *INFERENCE_SHAPES, (3, 37, 101), (30, 112, 112),
+                    *MULTI_SOLVE_SHAPES]
 # The tile-halo kernel's tile stacks: the 1080p batch-4 solve and the 4K
-# frame at one tile, their tiles at T = 4, the blocks scenario at one tile,
-# an odd shape, a one-row tile; and the tile counts of the decomposition
-# check.
+# frame at one tile, their tiles at T = 4 and T = 2, the 1080p batch and a
+# 2-frame 4K batch on chip_smoke_multi.py's data 2 x tile 2 mesh (6 x 540 x
+# 1920 and 3 x 1080 x 3840, the latter also 4K at T = 2) and data 2 x tile
+# 1 mesh (6 x 1080 x 1920, and the 4K frame), the tiles of
+# dryrun_multichip's scenes (6 x 8 x 32; 3 x 8 x 32 on data x tile), the
+# blocks scenario at one tile, an odd shape, a one-row tile; and the tile
+# counts of the decomposition check.
 HALO_SHAPES = [(12, 1080, 1920), (3, 2160, 3840), (12, 270, 1920), (3, 540, 3840),
+               (12, 540, 1920), (3, 1080, 3840), (6, 540, 1920), (6, 1080, 1920),
+               (6, 8, 32), (3, 8, 32),
                (9, 256, 256), (3, 37, 101), (2, 1, 64)]
 HALO_TILES = (2, 4)
 # bench.py's 4K frame; bench_suite.py's tiled adaptive row (96 iterations,
@@ -204,6 +225,7 @@ FIXTURE_BATCH_SHA256 = {
 NUMPY_PAIR_JAX = {"peak_snr": 26.293628692626953, "ssim": 0.9848365783691406,
                   "gmsd": 0.035629257559776306}
 DP_STEPS = 3  # data-parallel steps held bit for bit
+MULTI_WORLD1_DEADLINE = 150  # chip_smoke_multi.py --world 1 --size cut, seconds
 # The demo's branches (scripts/demo_deconv.py:143-184) and the JAX package's
 # PSNR of each on the CPU (synthetic_images(), 100 iterations, batch PSNR of
 # the clipped result): the JAX script's own calls, with prox_impl "pallas"
@@ -1141,6 +1163,31 @@ def phase_data_parallel(dev, seed: int) -> dict:
     return {"ms": ms_grouped, "alone_ms": ms_alone, "equal": equal, "launches": counts}
 
 
+def phase_multi_world1() -> dict:
+    """``chip_smoke_multi.py --world 1 --size cut`` as a subprocess: the
+    multi-card launcher, ``env://`` and every phase at one rank, on NCCL, at
+    the full widths with the depth cut.  Returns its summary."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke_multi.py"), "--world", "1", "--size",
+         "cut", "--deadline", str(MULTI_WORLD1_DEADLINE)],
+        cwd=REPO, capture_output=True, text=True, timeout=MULTI_WORLD1_DEADLINE + 60)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("[summary] {"):
+            print(f"    | {line}")
+    check(proc.returncode == 0 and lines, f"chip_smoke_multi.py --world 1 exited "
+                                          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    last = json.loads(lines[-1])
+    want = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}
+    check(last["ok"] and last["device"] == want, f"its last line {last}")
+    summary = json.loads(next(ln for ln in lines if ln.startswith("[summary] {"))[10:])
+    print(f"[multi_world1] chip_smoke_multi.py --world 1 --size cut: exit 0 in {secs:.1f} s "
+          f"(its own process and launcher); its last line {lines[-1]}")
+    return summary
+
+
 def phase_demo(dev) -> dict:
     """The demo CLI's run() on its synthetic frames, each of its six
     branches: PSNR beside the JAX package's, launches."""
@@ -1669,24 +1716,34 @@ TILED_PROFILE_GROUPS = (
 )
 
 
-def profile_tiled(tiled, single, y) -> None:
-    """Device time by kernel group for one tiled and one single-device
-    1080p solve under torch.profiler."""
+def profiled_solve(solve, y, label: str) -> dict:
+    """One ``solve(y)`` under torch.profiler: its wall ms, its device work
+    (``device_events``) and busy ms, and the device ms under each
+    collective's ``nccl:*`` range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(y)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = device_events(prof, label)
+    return {"wall_ms": wall_ms, "kernels": kernels,
+            "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "collectives": {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA and e.key.startswith("nccl:")}}
+
+
+def profile_tiled(tiled, single, y) -> None:
+    """Device time by kernel group for one tiled and one single-device
+    1080p solve under torch.profiler."""
     for label, solve in (("tiled T=1", tiled), ("single device", single)):
         solve(y)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            solve(y + 1e-4 * (TTQ_REPEATS + 1))
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        kernels = device_events(prof, label)
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        collectives = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.key.startswith("nccl:")}
+        run = profiled_solve(solve, y + 1e-4 * (TTQ_REPEATS + 1), label)
+        kernels, busy, wall_ms = run["kernels"], run["busy_ms"], run["wall_ms"]
+        collectives = run["collectives"]
         coll_ms = sum(collectives.values())
         print(f"[tiled profile] {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
               f"idle share {1 - busy / wall_ms:.3f}; device time under the collectives "
@@ -2502,6 +2559,7 @@ def main() -> None:
     data = phase_data()
     cli = phase_cli_train(dev, args.seed, data, trainer_ms)
     dp = phase_data_parallel(dev, args.seed)
+    multi = phase_multi_world1()
     demo = phase_demo(dev)
     tv = phase_tv_layer(dev)
     times = phase_kernel_times(dev, gen)
@@ -2602,6 +2660,18 @@ def main() -> None:
         demo["auto"]["launches"][demo_stencil]
     by_kernel["fused_admm_stencil_composite"]["launches_by_path"] = {
         "demo --l1": demo["l1"]["launches"]["stencil_composite"]}
+    # chip_smoke_multi.py at one rank, read from its summary: the tiled fp32
+    # solve on the 1080p batch and the data-parallel steps.
+    tiled_fp32 = next(r for r in multi["C"] if r.get("solver") == "fp32")
+    by_kernel["fused_admm_stencil_halo"]["launches_by_path"][
+        f"chip_smoke_multi --world 1 --size cut tiled fp32 solve {tuple(tiled_fp32['shape'])}, "
+        f"{tiled_fp32['iters']} it"] = tiled_fp32["launches"][0]
+    dp = multi["F"]
+    for name, counter in (("fused_admm_stencil", "fused_admm_stencil"),
+                          ("stencil_bwd", "stencil_bwd")):
+        by_kernel[name]["launches_by_path"][
+            f"chip_smoke_multi --world 1 --size cut {DP_STEPS} data-parallel steps, {dp['model']} "
+            f"{tuple(dp['crop'])} batch {dp['global_batch']}"] = dp["launches"][0][counter]
     by_kernel["fused_prox_dual"]["launches_by_path"] |= {
         f"demo {k}": demo[k]["launches"]["prox_dual"] for k in ("adaptive", "anderson", "auto")}
     for name in ("fused_admm_stencil", "fused_admm_stencil_mixed", "stencil_bwd",

@@ -11,7 +11,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "admm_deconv_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "admm_deconv_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "chip_smoke_multi.py"]
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|admm_deconv_tpu)(\.|\s|$)", re.M)
 
 
@@ -246,6 +247,27 @@ def test_port_data_and_scripts_run_with_jax_blocked(tmp_path):
         "assert mods == ['jax'], mods\n"
         "for fn in (sk._kernel_fn, sk._bwd_kernel_fn, sk._composite_kernel_fn):\n"
         "    assert fn.cache_info().currsize == 0, 'kernel built on CPU'\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_chip_smoke_multi_imports_with_jax_blocked():
+    """The multi-card script and every module its ranks import load with
+    jax and the JAX package blocked."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['admm_deconv_tpu'] = None\n"
+        "import chip_smoke_multi\n"
+        "import admm_deconv_tpu_torch.parallel, admm_deconv_tpu_torch.scripts.train\n"
+        "import admm_deconv_tpu_torch.data, admm_deconv_tpu_torch.layers\n"
+        "from admm_deconv_tpu_torch.ops.kernels import stencil_kernels as sk\n"
+        "mods = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "        or m == 'admm_deconv_tpu' or m.startswith('admm_deconv_tpu.')]\n"
+        "assert sorted(mods) == ['admm_deconv_tpu', 'jax'], mods\n"
+        "assert sk._halo_kernel_fn.cache_info().currsize == 0, 'kernel built on CPU'\n"
         "print('ok')\n"
     )
     assert proc.returncode == 0, proc.stderr
