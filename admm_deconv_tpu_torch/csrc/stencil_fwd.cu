@@ -22,69 +22,47 @@
 // ~0.18 ms or ~0.10 ms at the data sheet's 3.35 TB/s.  A few FLOPs per
 // byte put it far below the compute roof.
 //
-// Design: one thread per output pixel.  The thread recomputes v at
-// (r, c), (r, c+1) and (r+1, c): 7 reads of x and 3 each of ux and uy, of
-// which all but one of each come from L1/L2 because neighbouring threads
-// and row blocks read the same lines.  Rows (N*H) ride gridDim.x, column
-// blocks gridDim.y; offsets are 64-bit.  Outputs go to fresh buffers: the
-// TPU kernel updates ux/uy in place, which on a GPU would race with the
-// neighbour threads that read ux[r, c+1] and uy[r+1, c].
+// Design: the row march of stencil_march.cuh, whose edge rows are the
+// plane's own rows h - 1 (above row 0) and 0 (below row h - 1); the
+// geometry (strip height, warps a block, grid) comes from the caller
+// (ops/kernels/stencil_kernels.py, `march_geometry`).  Outputs go to fresh
+// buffers: the TPU kernel updates ux/uy in place, which on a GPU would race
+// with the neighbour strips that read row r0 of the duals.
 //
 // Build with --fmad=false: the plain torch version rounds after every
 // operation, and contracting a*b+c into an FMA would move the kernel off it.
 
 #include <stdint.h>
 
-#include "prox_math.cuh"
+#include "stencil_march.cuh"
 
 namespace {
 
 using namespace admm;
 
+constexpr int kMaxThreads = 256;
+
 template <int MODE, typename T>
-__global__ void stencil_fwd_kernel(const float* __restrict__ x,
-                                   const T* __restrict__ ux,
-                                   const T* __restrict__ uy,
-                                   const float* __restrict__ tau,
-                                   T* __restrict__ q, T* __restrict__ ux_out,
-                                   T* __restrict__ uy_out, int h, int w) {
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= w) return;
-  const int64_t row = blockIdx.x;  // plane * h + r
-  const int64_t plane = row / h;
-  const int r = static_cast<int>(row - plane * h);
-  const int ra = r == 0 ? h - 1 : r - 1;
-  const int rb = r == h - 1 ? 0 : r + 1;
-  const int cl = c == 0 ? w - 1 : c - 1;
-  const int cr = c == w - 1 ? 0 : c + 1;
-  const int64_t base = plane * h * static_cast<int64_t>(w);
-  const int64_t off_r = base + static_cast<int64_t>(r) * w;
-  const int64_t off_a = base + static_cast<int64_t>(ra) * w;
-  const int64_t off_b = base + static_cast<int64_t>(rb) * w;
-  const float t = tau[plane];
-
-  float wx0, wy0, uxn0, uyn0;  // at (r, c): the pixel this thread writes
-  tv_split_pixel<MODE>(x + off_r, x + off_a, ux + off_r, uy + off_r, c, cl, t,
-                       wx0, wy0, uxn0, uyn0);
-  float wx1, wy1, uxn1, uyn1;  // at (r, c+1): only wx is used
-  tv_split_pixel<MODE>(x + off_r, x + off_a, ux + off_r, uy + off_r, cr, c, t,
-                       wx1, wy1, uxn1, uyn1);
-  float wx2, wy2, uxn2, uyn2;  // at (r+1, c): only wy is used
-  tv_split_pixel<MODE>(x + off_b, x + off_r, ux + off_b, uy + off_b, c, cl, t,
-                       wx2, wy2, uxn2, uyn2);
-
-  const int64_t i = off_r + c;
-  store(q + i, (wx0 - wx1) + (wy0 - wy2));
-  store(ux_out + i, uxn0);
-  store(uy_out + i, uyn0);
+__global__ void __launch_bounds__(kMaxThreads)
+    stencil_fwd_kernel(const float* __restrict__ x, const T* __restrict__ ux,
+                       const T* __restrict__ uy, const float* __restrict__ tau,
+                       int64_t tau_stride, T* __restrict__ q, T* __restrict__ ux_out,
+                       T* __restrict__ uy_out, int h, int w, int rows, int strips, bool vec) {
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const EdgeRows<T> wrap{x + hw - w, x, ux, uy, hw};
+  march_strip<MODE>(x, ux, uy, wrap, tau, tau_stride, q, ux_out, uy_out, h, w, rows, strips,
+                    vec);
 }
 
 template <typename T>
 cudaError_t launch(int mode, const float* x, const void* ux, const void* uy,
-                   const float* tau, void* q, void* ux_out, void* uy_out,
-                   int64_t n, int h, int w, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const dim3 grid(static_cast<unsigned>(n * h), (w + kThreads - 1) / kThreads);
+                   const float* tau, int64_t tau_stride, void* q, void* ux_out,
+                   void* uy_out, int64_t n, int h, int w, int rows, int strips, int chunks,
+                   int threads, bool vec, cudaStream_t stream) {
+  if (threads % 32 != 0 || threads > kMaxThreads || n * strips > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(chunks, static_cast<unsigned>(n * strips));
   const T* uxp = static_cast<const T*>(ux);
   const T* uyp = static_cast<const T*>(uy);
   T* qp = static_cast<T*>(q);
@@ -92,20 +70,20 @@ cudaError_t launch(int mode, const float* x, const void* ux, const void* uy,
   T* uyo = static_cast<T*>(uy_out);
   switch (mode) {
     case kAniso:
-      stencil_fwd_kernel<kAniso, T><<<grid, kThreads, 0, stream>>>(
-          x, uxp, uyp, tau, qp, uxo, uyo, h, w);
+      stencil_fwd_kernel<kAniso, T><<<grid, threads, 0, stream>>>(
+          x, uxp, uyp, tau, tau_stride, qp, uxo, uyo, h, w, rows, strips, vec);
       break;
     case kIso:
-      stencil_fwd_kernel<kIso, T><<<grid, kThreads, 0, stream>>>(
-          x, uxp, uyp, tau, qp, uxo, uyo, h, w);
+      stencil_fwd_kernel<kIso, T><<<grid, threads, 0, stream>>>(
+          x, uxp, uyp, tau, tau_stride, qp, uxo, uyo, h, w, rows, strips, vec);
       break;
     case kHard:
-      stencil_fwd_kernel<kHard, T><<<grid, kThreads, 0, stream>>>(
-          x, uxp, uyp, tau, qp, uxo, uyo, h, w);
+      stencil_fwd_kernel<kHard, T><<<grid, threads, 0, stream>>>(
+          x, uxp, uyp, tau, tau_stride, qp, uxo, uyo, h, w, rows, strips, vec);
       break;
     case kGauss:
-      stencil_fwd_kernel<kGauss, T><<<grid, kThreads, 0, stream>>>(
-          x, uxp, uyp, tau, qp, uxo, uyo, h, w);
+      stencil_fwd_kernel<kGauss, T><<<grid, threads, 0, stream>>>(
+          x, uxp, uyp, tau, tau_stride, qp, uxo, uyo, h, w, rows, strips, vec);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -120,19 +98,23 @@ extern "C" {
 // Launches the stencil on `stream` and returns cudaGetLastError() (0 on
 // success).  `mode`: 0 aniso, 1 iso, 2 hard, 3 gauss.  `bf16`: 0 when the
 // duals and outputs are float, 1 when they are __nv_bfloat16.  Every array
-// is a contiguous (n, h, w) plane stack; `tau` holds n floats.
-int admm_stencil_fwd(const void* x, const void* ux, const void* uy,
-                     const void* tau, void* q, void* ux_out, void* uy_out,
-                     int64_t n, int h, int w, int mode, int bf16,
-                     void* stream) {
+// is a contiguous (n, h, w) plane stack; plane p's tau is
+// tau[p * tau_stride] (0 for one tau).  The grid is (chunks, n * strips)
+// blocks of `threads`, each marching `rows` rows; `vec` is 1 when every row
+// takes 16-byte accesses (w % 4 == 0, aligned pointers).
+int admm_stencil_fwd(const void* x, const void* ux, const void* uy, const void* tau,
+                     void* q, void* ux_out, void* uy_out, int64_t n, int h, int w,
+                     int mode, int bf16, int64_t tau_stride, int rows, int strips,
+                     int chunks, int threads, int vec, void* stream) {
   const float* xp = static_cast<const float*>(x);
   const float* tp = static_cast<const float*>(tau);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch<__nv_bfloat16>(mode, xp, ux, uy, tp, q, ux_out, uy_out, n,
-                                 h, w, s);
+    return launch<__nv_bfloat16>(mode, xp, ux, uy, tp, tau_stride, q, ux_out, uy_out, n, h,
+                                 w, rows, strips, chunks, threads, vec != 0, s);
   }
-  return launch<float>(mode, xp, ux, uy, tp, q, ux_out, uy_out, n, h, w, s);
+  return launch<float>(mode, xp, ux, uy, tp, tau_stride, q, ux_out, uy_out, n, h, w, rows,
+                       strips, chunks, threads, vec != 0, s);
 }
 
 const char* admm_cuda_error_string(int code) {

@@ -26,13 +26,17 @@ the tiled solver, with the neighbour tiles' rows in place of the H wrap
 (``csrc/stencil_halo.cu`` on a CUDA tensor, :func:`_halo_plain` on a CPU
 tensor); forward-only too.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+The forward and tile kernels are one row march (``csrc/stencil_march.cuh``);
+:func:`march_geometry` cuts a stack into the strips and column chunks its
+blocks own.  Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,8 +46,70 @@ from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES, prox_apply, prox_
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 _DUAL_DTYPES = (torch.float32, torch.bfloat16)
 _INT32_MAX = 2**31 - 1
-# Threads per block of both kernels; a block covers one row segment.
+# Threads per block of the backward kernel; a block covers one row segment.
 _THREADS = 256
+# The row march (csrc/stencil_march.cuh): columns a thread owns, warps a
+# block at most, and a strip's rows.  Set from a sweep of both kernels on an
+# H100 (PERF.md, `chip_times.py --sweep`): blocks of at most 3 warps, and
+# 4-row strips, read within 4% of the best of 1-64 rows and 1-5 warps at 12
+# and 6 planes of 1080p and the 4-card tiles, but for the forward kernel
+# with fp32 duals, which reads 2-7% faster with 2-row strips (the tile
+# kernel, with more registers, reads 2-4% slower with them).  1-row strips
+# lose 20-35% with bf16 duals, 64-row strips of 5 warps up to 30% (too few
+# blocks).
+_MARCH_VEC = 4
+_MARCH_MAX_WARPS = 3
+_MARCH_ROWS = 4
+_MARCH_ROWS_FWD_FP32 = 2
+# Blocks a launch should have at least (4 for each of the H100's 132 SMs),
+# where the stack has that many rows: smaller stacks take shorter strips.
+_MARCH_MIN_BLOCKS = 4 * 132
+_GRID_Y_MAX = 65535
+
+
+class MarchGeometry(NamedTuple):
+    """How the row march cuts an ``(n, h, w)`` stack: strips of ``rows`` rows
+    (``strips`` to a plane, the last one shorter where ``rows`` does not
+    divide ``h``), rows cut into ``chunks`` column chunks of ``threads``
+    threads, four columns a thread.  The grid is ``(chunks, n * strips)``."""
+
+    rows: int
+    strips: int
+    chunks: int
+    threads: int
+
+
+def march_geometry(n: int, h: int, w: int, rows: int = _MARCH_ROWS) -> MarchGeometry:
+    """The row march's strips and blocks for an ``(n, h, w)`` stack.
+
+    A block is as many whole warps (at most ``_MARCH_MAX_WARPS``) as divide
+    a row's warps evenly, so no block idles at the row's end.  Strips are
+    ``rows`` rows and never cross a plane; shorter where the stack would
+    otherwise give fewer than ``_MARCH_MIN_BLOCKS`` blocks, taller only
+    where the grid's second axis could not hold so many.  The march needs
+    no shared memory: the neighbour columns come by warp shuffle.
+    """
+    warps_row = -(-w // (32 * _MARCH_VEC))
+    warps = max(d for d in range(1, _MARCH_MAX_WARPS + 1) if warps_row % d == 0)
+    chunks = warps_row // warps
+    if n > _GRID_Y_MAX:
+        raise ValueError(f"{n} planes exceed the row march's grid")
+    rows = max(1, min(rows, n * h * chunks // _MARCH_MIN_BLOCKS))
+    strips = min(-(-h // rows), _GRID_Y_MAX // n)
+    rows = -(-h // strips)
+    return MarchGeometry(rows, -(-h // rows), chunks, 32 * warps)
+
+
+def _vec_ok(w: int, *arrays: torch.Tensor, halo_stride: int = 0) -> bool:
+    """Whether every row of the arrays takes the march's 4-element accesses."""
+    return (w % _MARCH_VEC == 0 and halo_stride % _MARCH_VEC == 0
+            and all(a.data_ptr() % (_MARCH_VEC * a.element_size()) == 0 for a in arrays))
+
+
+def _tau_operand(tau: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """tau as the march takes it: fp32, and its plane stride (0 for one)."""
+    tau = tau.to(torch.float32)
+    return tau, 0 if tau.ndim == 0 else tau.stride(0)
 
 
 def _stencil_plain(x, ux, uy, tau, mode):
@@ -125,9 +191,15 @@ def _load_kernel(name: str, entry: str, n_ptrs: int, scalars=_STENCIL_ARGS):
     return fn, lib.admm_cuda_error_string
 
 
+# The march's arguments after the stencil's: tau_stride, rows, strips,
+# chunks, threads, vec.
+_MARCH_ARGS = (ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int)
+
+
 @functools.cache
 def _kernel_fn():
-    return _load_kernel("stencil_fwd", "admm_stencil_fwd", 7)
+    return _load_kernel("stencil_fwd", "admm_stencil_fwd", 7, (*_STENCIL_ARGS, *_MARCH_ARGS))
 
 
 @functools.cache
@@ -145,7 +217,8 @@ def _composite_kernel_fn():
 
 @functools.cache
 def _halo_kernel_fn():
-    return _load_kernel("stencil_halo", "admm_stencil_halo", 11, (*_STENCIL_ARGS, ctypes.c_int64))
+    return _load_kernel("stencil_halo", "admm_stencil_halo", 11,
+                        (*_STENCIL_ARGS, *_MARCH_ARGS, ctypes.c_int64))
 
 
 def _check_cuda_operands(x, ux):
@@ -180,18 +253,22 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 def _stencil_cuda(x, ux, uy, tau, mode):
     """Check the operands and launch ``csrc/stencil_fwd.cu`` on the current
-    stream.  Outputs are fresh buffers (never aliased onto ``ux``/``uy``)."""
+    stream, cut by :func:`march_geometry`.  Outputs are fresh buffers (never
+    aliased onto ``ux``/``uy``)."""
     _check_cuda_operands(x, ux)
     n, h, w = x.shape
     x, ux, uy = x.contiguous(), ux.contiguous(), uy.contiguous()
-    tau_n = tau.to(torch.float32).expand(n).contiguous()
+    tau, tau_stride = _tau_operand(tau)
     q = torch.empty_like(ux)
     ux_new = torch.empty_like(ux)
     uy_new = torch.empty_like(ux)
     _launch(
         _kernel_fn, "stencil_fwd", x.device,
-        *(_ptr(a) for a in (x, ux, uy, tau_n, q, ux_new, uy_new)),
-        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16),
+        *(_ptr(a) for a in (x, ux, uy, tau, q, ux_new, uy_new)),
+        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16), tau_stride,
+        *march_geometry(n, h, w, _MARCH_ROWS_FWD_FP32 if ux.dtype == torch.float32
+                        else _MARCH_ROWS),
+        int(_vec_ok(w, x, ux, uy, q, ux_new, uy_new)),
     )
     return q, ux_new, uy_new
 
@@ -508,14 +585,17 @@ def _halo_cuda(x, ux, uy, halos, tau, mode):
     halos = [a.to(torch.float32) for a in halos]  # bf16 rows widen exactly
     if len({a.stride(0) for a in halos}) > 1 or any(a.stride(-1) != 1 for a in halos):
         halos = [a.contiguous() for a in halos]
-    tau_n = tau.to(torch.float32).expand(n).contiguous()
+    tau, tau_stride = _tau_operand(tau)
     q = torch.empty_like(ux)
     ux_new = torch.empty_like(ux)
     uy_new = torch.empty_like(ux)
+    halo_stride = halos[0].stride(0)
+    vec = _vec_ok(w, x, ux, uy, *halos, q, ux_new, uy_new, halo_stride=halo_stride)
     _launch(
         _halo_kernel_fn, "stencil_halo", x.device,
-        *(_ptr(a) for a in (x, ux, uy, *halos, tau_n, q, ux_new, uy_new)),
-        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16), halos[0].stride(0),
+        *(_ptr(a) for a in (x, ux, uy, *halos, tau, q, ux_new, uy_new)),
+        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16), tau_stride,
+        *march_geometry(n, h, w), int(vec), halo_stride,
     )
     return q, ux_new, uy_new
 

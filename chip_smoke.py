@@ -12,9 +12,11 @@ Phases, in order; any failure raises and exits non-zero:
 2. build: compiles the port's five CUDA kernels from
    ``admm_deconv_tpu_torch/csrc``, one nvcc per source, all at once;
 3. kernels: the forward stencil against its plain torch version on the
-   card, every prox mode, fp32 and bf16 duals, scalar and per-plane tau, at
-   the TPU kernel's 1-, 2- and 3-row-block shapes, the bench shape and every
-   inference and training path's shape; a gradient on the card goes through
+   card, bit for bit, every prox mode, fp32 and bf16 duals, scalar and
+   per-plane tau, at the TPU kernel's 1-, 2- and 3-row-block shapes, the
+   bench shape, a one-row plane and every inference and training path's
+   shape, and again on storage one element off alignment (the row march's
+   element-wise accesses); a gradient on the card goes through
    the backward kernel; then the backward kernel against ``_bwd_plain`` at
    the training shapes (also with the outputs nobody asked for skipped), and
    the autograd Function against autograd through the plain forward; then the
@@ -23,7 +25,8 @@ Phases, in order; any failure raises and exits non-zero:
    against ``_composite_plain``, every mode, tau kind, carry dtype and box,
    at every plane stack an inference path hands them; then the tile-halo
    stencil against ``_halo_plain`` with random halo rows at every tile
-   stack a tiled path hands it (a one-row tile included), and over 2 and 4
+   stack a tiled path hands it (a one-row tile and misaligned storage
+   included), and over 2 and 4
    tiles of the 1080p batch-4 stack against the circular kernel on the
    whole, bit for bit;
 4. quality: the 256^2 blocks scenario (3 RGB images, 7x7 motion PSF,
@@ -111,7 +114,9 @@ metrics against the JAX package's values; phase 8 does the same for the
 tiled solver.
 
 Every path zeroes the kernels' launch counters just before it runs and
-checks them just after.
+checks them just after.  Each kernel's time is printed per call from the
+host (``cuda_ms``) and on the device alone (``device_ms``); the build
+prints the ptxas report of each row-march kernel instantiation.
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -156,11 +161,18 @@ MULTI_SOLVE_SHAPES = [(3, 2160, 3840), (6, 2160, 3840), (6, 8, 32), (6, 32, 32),
 # RGB).  The forward, prox-dual and composite kernels are checked at these.
 INFERENCE_SHAPES = [(12, 512, 512), (9, 256, 256)]
 # The forward kernel's further shapes: the TPU kernel's 1-, 2- and 3-row-block
-# shapes and the 1080p batch-4 solve.
+# shapes, the 1080p batch-4 solve and a one-row plane.
 KERNEL_SHAPES = [(2, 24, 128), (1, 256, 2048), (1, 384, 2048), (12, 1080, 1920),
-                 *INFERENCE_SHAPES, *BWD_SHAPES, *MULTI_SOLVE_SHAPES]
+                 *INFERENCE_SHAPES, *BWD_SHAPES, *MULTI_SOLVE_SHAPES, (2, 1, 64)]
+# The forward and tile kernels' stacks held again with misaligned storage
+# (the row march's element-wise accesses): a width not a multiple of 4,
+# aligned widths, a one-row plane, a 4K stack with 64-bit offsets.
+MISALIGNED_SHAPES = [(3, 37, 101), (2, 24, 128), (6, 8, 32), (2, 1, 64), (3, 2160, 3840)]
 KERNEL_SOURCES = ("stencil_fwd", "stencil_bwd", "prox_dual", "stencil_composite",
                   "stencil_halo")
+# The two kernels built on the row march (csrc/stencil_march.cuh): their
+# ptxas report is printed in full.
+MARCH_SOURCES = ("stencil_fwd", "stencil_halo")
 CSRC = "admm_deconv_tpu_torch/csrc"
 TPU_KERNELS = "admm_deconv_tpu/ops/pallas/stencil_kernels.py"
 TPU_PROX_KERNELS = "admm_deconv_tpu/ops/pallas/prox_kernels.py"
@@ -188,6 +200,11 @@ HALO_SHAPES = [(12, 1080, 1920), (3, 2160, 3840), (12, 270, 1920), (3, 540, 3840
                (6, 8, 32), (3, 8, 32),
                (9, 256, 256), (3, 37, 101), (2, 1, 64)]
 HALO_TILES = (2, 4)
+# The tile-halo kernel's timed stacks: the 1080p batch-4 solve, the TV
+# layer's 6 planes and the 4K frame at one tile, and chip_smoke_multi.py's
+# five tile stacks on 4 cards.
+HALO_TIME_SHAPES = [(12, 1080, 1920), (6, 1080, 1920), (3, 2160, 3840), (12, 540, 1920),
+                    (3, 1080, 3840), (12, 270, 1920), (3, 540, 3840), (6, 540, 1920)]
 # bench.py's 4K frame; bench_suite.py's tiled adaptive row (96 iterations,
 # check_every 8, tolerances 0 so every block runs).
 FRAME_4K = (1, 2160, 3840, 3)
@@ -258,6 +275,13 @@ def bf16_ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool(((g - w).abs() <= ulp).all())
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose storage starts one element past an
+    aligned address."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
 def fp32_close(got: torch.Tensor, want: torch.Tensor) -> bool:
     """|got - want| <= 1e-5 + 1e-5 |want| everywhere."""
     return bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
@@ -274,6 +298,39 @@ def cuda_ms(fn, calls: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def device_ms(fn, calls: int) -> float:
+    """Device ms per call of ``fn``'s kernel, with none of the host's time
+    (``cuda_ms`` times the calls from the host's side, so a wrapper slower
+    than its kernel shows there).  ``calls`` calls, each after a 128 MB read
+    that evicts the 50 MB L2 (as the solver's FFTs between two stencil calls
+    do), are captured into one CUDA graph and replayed between CUDA events;
+    the same graph of reads alone is timed too and taken off.  (The
+    profiler's kernel records were tried first: on an H100 they lost some or
+    all of a session's launches once a process had profiled a while.)"""
+    flush = torch.ones(32 << 20, device="cuda")
+    fn()  # builds and loads the kernel outside the capture
+    torch.cuda.synchronize()
+    graphs = {"kernel": torch.cuda.CUDAGraph(), "reads": torch.cuda.CUDAGraph()}
+    for name, graph in graphs.items():
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                flush.max()
+                if name == "kernel":
+                    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms = {}
+    for name, graph in graphs.items():
+        runs = []
+        for _ in range(3):
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        ms[name] = min(runs)
+    return (ms["kernel"] - ms["reads"]) / calls
 
 
 def nvidia_smi() -> str:
@@ -309,13 +366,35 @@ def phase_build() -> None:
             future.result()
     print(f"[build] {', '.join(KERNEL_SOURCES)} built/loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for lib in map(_build.library_path, KERNEL_SOURCES):
+    for name, lib in zip(KERNEL_SOURCES, map(_build.library_path, KERNEL_SOURCES)):
         log = lib.with_name(lib.name + ".log")
         text = log.read_text() if log.is_file() else ""
         regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers", text)})
         spills = sorted(set(re.findall(r"(\d+) bytes spill stores", text)))
         print(f"[build] {lib.name.split('-')[0]} ptxas: {len(regs) and regs[0]}-"
               f"{len(regs) and regs[-1]} registers per instantiation, spill stores {spills}")
+        if name in MARCH_SOURCES:
+            for entry in ptxas_entries(text):
+                print(f"[build]   {name} {entry}")
+
+
+def ptxas_entries(log: str) -> list[str]:
+    """Each kernel instantiation's line of nvcc's ``-Xptxas -v`` report:
+    template arguments, registers, spill bytes and shared memory."""
+    lines = []
+    for block in log.split("Compiling entry function")[1:]:
+        name = re.match(r"\s*'([^']+)'", block)
+        args = re.search(r"ILi(\d)E(f|13__nv_bfloat16)E", name.group(1)) if name else None
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        mode = "?" if args is None else ("aniso", "iso", "hard", "gauss")[int(args.group(1))]
+        dual = "?" if args is None else ("fp32" if args.group(2) == "f" else "bf16")
+        lines.append(f"<{mode}, {dual}>: {regs.group(1) if regs else '?'} registers, spill "
+                     f"stores/loads {spill.group(1) if spill else '?'}/"
+                     f"{spill.group(2) if spill else '?'} B, shared memory "
+                     f"{smem.group(1) if smem else 0} B")
+    return lines
 
 
 def phase_kernels(dev, gen) -> dict:
@@ -328,8 +407,7 @@ def phase_kernels(dev, gen) -> dict:
         fused_admm_stencil_mixed,
     )
 
-    print("[kernels] tolerance: fp32 |kernel-plain| <= 1e-5 + 1e-5*|plain|; "
-          "bf16 equal or one bf16 ulp apart")
+    print("[kernels] tolerance: kernel equal to the plain twin bit for bit (fp32 and bf16)")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape in KERNEL_SHAPES:
         n = shape[0]
@@ -350,14 +428,26 @@ def phase_kernels(dev, gen) -> dict:
                         check(g.dtype == dual and g.shape == x.shape, f"{shape} output layout")
                         check(bool(torch.isfinite(g).all()), f"{shape} {mode} non-finite")
                         err = max(err, float((g.float() - w.float()).abs().max()))
-                        if dual == torch.float32:
-                            ok = fp32_close(g, w)
-                        else:
-                            ok = bf16_ulp_ok(g, w)
-                        check(ok, f"kernel vs plain {shape} {mode} {dual} {tau_kind}: {err}")
+                        check(torch.equal(g, w),
+                              f"kernel vs plain {shape} {mode} {dual} {tau_kind}: {err}")
                     worst[dual] = max(worst[dual], err)
                     print(f"[kernels] {str(shape):16s} {mode:5s} {str(dual)[6:]:8s} "
                           f"tau={tau_kind:6s} max|kernel-plain|={err:.3e}")
+    # Rows the 16-byte accesses do not fit: storage one element off an
+    # aligned address takes the element-wise accesses of the same kernel.
+    for shape in MISALIGNED_SHAPES:
+        x = misaligned(torch.randn(shape, generator=gen, device=dev))
+        u32 = [0.5 * torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
+        for dual in (torch.float32, torch.bfloat16):
+            ux, uy = (misaligned(u.to(dual)) for u in u32)
+            wrapper = fused_admm_stencil if dual == torch.float32 else fused_admm_stencil_mixed
+            for mode in MODES:
+                got = wrapper(x, ux, uy, torch.tensor(0.3, device=dev), mode=mode)
+                want = _stencil_plain(x, ux, uy, torch.tensor(0.3, device=dev), mode)
+                for g, w in zip(got, want):
+                    check(torch.equal(g, w), f"kernel vs plain {shape} {mode} {dual} misaligned")
+        print(f"[kernels] {str(shape):16s} misaligned storage, every mode, fp32 and bf16: "
+              f"equal to the plain twin")
     x = torch.zeros((1, 8, 8), device=dev)
     x[0, :, 4:] = 1.0  # a flat region under zero duals: iso's v = 0
     x.requires_grad_()
@@ -640,8 +730,11 @@ def phase_stencil_times(dev, gen) -> dict:
         kernel = lambda: wrapper(x, ux, uy, tau, mode="aniso")  # noqa: E731
         # plain, kernel, kernel, plain: one card, in turns.
         p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kernel, kernel, plain))
-        times[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
-        print(f"[stencil] {shape} {name} duals, aniso: kernel {k1:.4f}/{k2:.4f} ms, "
+        dev_ms = device_ms(kernel, 20)
+        floor = bound(shape, 14 if dual == torch.bfloat16 else 24, 21)["bound_ms"]
+        times[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "device_ms": dev_ms}
+        print(f"[stencil] {shape} {name} duals, aniso: kernel {k1:.4f}/{k2:.4f} ms per call, "
+              f"device {dev_ms:.4f} ms ({floor / dev_ms:.1%} of the {floor:.4f} ms HBM floor), "
               f"plain {p1:.4f}/{p2:.4f} ms per call")
     return times
 
@@ -1307,9 +1400,12 @@ def phase_kernel_times(dev, gen) -> dict:
         for name, (kernel, plain, bytes_px, flops_px) in pairs.items():
             p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kernel, kernel, plain))
             times[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                           "device_ms": device_ms(kernel, 20),
                            **bound(shape, bytes_px, flops_px)}
-            print(f"[times] {shape} {name}, aniso: kernel {k1:.4f}/{k2:.4f} ms, "
-                  f"plain {p1:.4f}/{p2:.4f} ms per call")
+            t = times[name]
+            print(f"[times] {shape} {name}, aniso: kernel {k1:.4f}/{k2:.4f} ms per call, "
+                  f"device {t['device_ms']:.4f} ms ({t['bound_ms'] / t['device_ms']:.1%} of the "
+                  f"{t['bound_ms']:.4f} ms HBM floor), plain {p1:.4f}/{p2:.4f} ms per call")
     return times
 
 
@@ -1501,6 +1597,24 @@ def phase_halo_kernel(dev, gen) -> dict:
                     worst[dual] = max(worst[dual], err)
                     print(f"[halo] {str(shape):16s} {mode:5s} {str(dual)[6:]:8s} "
                           f"tau={tau_kind:6s} max|kernel-plain|={err:.3e}")
+    # Misaligned storage: the element-wise accesses of the same kernel.
+    for shape in MISALIGNED_SHAPES:
+        n, _, w = shape
+        x = misaligned(torch.randn(shape, generator=gen, device=dev))
+        u32 = [0.5 * torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
+        halos = [misaligned(torch.randn((n, 1, w), generator=gen, device=dev))
+                 for _ in range(4)]
+        for dual in (torch.float32, torch.bfloat16):
+            ux, uy = (misaligned(u.to(dual)) for u in u32)
+            for mode in MODES:
+                tau = torch.tensor(0.3, device=dev)
+                got = fused_admm_stencil_halo(x, ux, uy, *halos, tau, mode=mode)
+                want = _halo_plain(x, ux, uy, *halos, tau, mode)
+                for g, wnt in zip(got, want):
+                    check(torch.equal(g, wnt), f"halo kernel vs plain {shape} {mode} {dual} "
+                          f"misaligned")
+        print(f"[halo] {str(shape):16s} misaligned storage, every mode, fp32 and bf16: "
+              f"equal to the plain twin")
     # The tile decomposition: the tiles' kernel outputs, concatenated, are
     # the circular kernel's on the whole stack.
     shape = (BENCH_SHAPE[0] * BENCH_SHAPE[3],) + BENCH_SHAPE[1:3]
@@ -1764,32 +1878,47 @@ def profile_tiled(tiled, single, y) -> None:
 
 
 def phase_halo_times(dev, gen) -> dict:
-    """The tile-halo kernel and its plain twin at the 1080p batch-4 stack
-    (one tile), CUDA events, fp32 and bf16 duals."""
+    """The tile-halo kernel at each stack of ``HALO_TIME_SHAPES`` with random
+    halo rows, fp32 and bf16 duals: ms per call (CUDA events) and on the
+    device alone; its plain twin at the first, the 1080p batch-4 stack."""
     from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
         _halo_plain,
         fused_admm_stencil_halo,
     )
 
-    shape = (BENCH_SHAPE[0] * BENCH_SHAPE[3],) + BENCH_SHAPE[1:3]
-    n, h, w = shape
-    x = torch.rand(shape, generator=gen, device=dev)
-    halos = [torch.rand((n, 1, w), generator=gen, device=dev) for _ in range(4)]
     tau = torch.tensor(LAM / RHO, device=dev)
     times = {}
-    for key, dual in (("halo_fp32", torch.float32), ("halo_bf16", torch.bfloat16)):
-        ux, uy = ((0.05 * torch.randn(shape, generator=gen, device=dev)).to(dual)
-                  for _ in range(2))
-        kernel = lambda ux=ux, uy=uy: fused_admm_stencil_halo(x, ux, uy, *halos, tau)  # noqa: E731
-        plain = lambda ux=ux, uy=uy: _halo_plain(x, ux, uy, *halos, tau, "aniso")  # noqa: E731
-        # Bytes: x, ux, uy in and q, ux', uy' out per pixel, plus the four
-        # fp32 halo rows (16 B per plane column); 21 operations a pixel.
-        bytes_px = (14 if dual == torch.bfloat16 else 24) + 16 / h
-        p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kernel, kernel, plain))
-        times[key] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), **bound(shape, bytes_px, 21)}
-        print(f"[times] {shape} {key}, aniso: kernel {k1:.4f}/{k2:.4f} ms, plain "
-              f"{p1:.4f}/{p2:.4f} ms per call; HBM floor {times[key]['bound_ms']:.4f} ms, "
-              f"kernel at {times[key]['bound_ms'] / min(k1, k2):.1%} of it")
+    for shape in HALO_TIME_SHAPES:
+        n, h, w = shape
+        x = torch.rand(shape, generator=gen, device=dev)
+        halos = [torch.rand((n, 1, w), generator=gen, device=dev) for _ in range(4)]
+        for key, dual in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            ux, uy = ((0.05 * torch.randn(shape, generator=gen, device=dev)).to(dual)
+                      for _ in range(2))
+
+            def kernel(ux=ux, uy=uy):
+                return fused_admm_stencil_halo(x, ux, uy, *halos, tau)
+
+            def plain(ux=ux, uy=uy):
+                return _halo_plain(x, ux, uy, *halos, tau, "aniso")
+
+            # Bytes: x, ux, uy in and q, ux', uy' out per pixel, plus the four
+            # fp32 halo rows (16 B per plane column); 21 operations a pixel.
+            bytes_px = (14 if dual == torch.bfloat16 else 24) + 16 / h
+            if shape == HALO_TIME_SHAPES[0]:
+                p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kernel, kernel, plain))
+                plain_ms = min(p1, p2)
+            else:
+                k1, k2, plain_ms = cuda_ms(kernel, 20), cuda_ms(kernel, 20), None
+            t = {"ms": min(k1, k2), "plain_ms": plain_ms,
+                 "device_ms": device_ms(kernel, 20),
+                 **bound(shape, bytes_px, 21)}
+            times[f"halo_{key}" if shape == HALO_TIME_SHAPES[0] else f"halo_{key} {shape}"] = t
+            plain_txt = "" if plain_ms is None else f", plain {p1:.4f}/{p2:.4f} ms per call"
+            print(f"[times] {shape} halo_{key}, aniso: kernel {k1:.4f}/{k2:.4f} ms per call, "
+                  f"device {t['device_ms']:.4f} ms{plain_txt}; HBM floor {t['bound_ms']:.4f} ms, "
+                  f"kernel at {t['bound_ms'] / t['ms']:.1%} of it per call, "
+                  f"{t['bound_ms'] / t['device_ms']:.1%} on the device")
     return times
 
 
@@ -2518,10 +2647,14 @@ def phase_new_kernel_times(dev, gen) -> dict:
     for name, (kernel, plain, bytes_px, flops_px) in pairs.items():
         p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kernel, kernel, plain))
         times[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                       "device_ms": device_ms(kernel, 20),
                        **bound(shape, bytes_px, flops_px)}
-        print(f"[times] {shape} {name}, aniso: kernel {k1:.4f}/{k2:.4f} ms, plain "
-              f"{p1:.4f}/{p2:.4f} ms per call; HBM floor {times[name]['bound_ms']:.4f} ms "
-              f"({bytes_px} B/px), kernel at {times[name]['bound_ms'] / min(k1, k2):.1%} of it")
+        t = times[name]
+        print(f"[times] {shape} {name}, aniso: kernel {k1:.4f}/{k2:.4f} ms per call, device "
+              f"{t['device_ms']:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per call; HBM floor "
+              f"{t['bound_ms']:.4f} ms ({bytes_px} B/px), kernel at "
+              f"{t['bound_ms'] / min(k1, k2):.1%} of it per call, "
+              f"{t['bound_ms'] / t['device_ms']:.1%} on the device")
     return times
 
 
@@ -2612,7 +2745,8 @@ def main() -> None:
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{CSRC}/{src}.cu", "replaces": replaces,
          "launches": launches[counter], "max_abs_err": err,
-         "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
+         "ms": times[key]["ms"], "device_ms": times[key]["device_ms"],
+         "plain_ms": times[key]["plain_ms"],
          "bound_ms": times[key]["bound_ms"], "bound_by": times[key]["bound_by"],
          "library_ms": None}
         for name, counter, src, replaces, err, key in (
@@ -2678,11 +2812,16 @@ def main() -> None:
                  "fused_prox_dual", "fused_admm_stencil_composite", "fused_admm_stencil_halo"):
         check(all(v > 0 for v in by_kernel[name]["launches_by_path"].values()),
               f"{name} was not launched on one of its paths: {by_kernel[name]}")
-    for entry, key in ((record["kernels"][-2], "composite_bf16"),
-                       (record["kernels"][-1], "halo_bf16")):
+    for name, key in (("stencil_bwd", "bwd_bf16"),
+                      ("fused_admm_stencil_composite", "composite_bf16"),
+                      ("fused_admm_stencil_halo", "halo_bf16")):
         bf16 = times[key]
-        entry |= {"ms_bf16": bf16["ms"], "plain_ms_bf16": bf16["plain_ms"],
-                  "bound_ms_bf16": bf16["bound_ms"]}
+        by_kernel[name] |= {"ms_bf16": bf16["ms"], "device_ms_bf16": bf16["device_ms"],
+                            "plain_ms_bf16": bf16["plain_ms"], "bound_ms_bf16": bf16["bound_ms"]}
+    # Q2-4 on the device alone at its other timed stacks (fp32, bf16).
+    by_kernel["fused_admm_stencil_halo"]["device_ms_by_stack"] = {
+        str(shape): [times[f"halo_{d} {shape}"]["device_ms"] for d in ("fp32", "bf16")]
+        for shape in HALO_TIME_SHAPES[1:]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

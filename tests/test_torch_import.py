@@ -12,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "admm_deconv_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "chip_smoke_multi.py"]
+    REPO / "chip_smoke.py", REPO / "chip_smoke_multi.py", REPO / "chip_times.py"]
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|admm_deconv_tpu)(\.|\s|$)", re.M)
 
 
@@ -278,6 +278,13 @@ def test_chip_smoke_refuses_without_cuda():
     proc = _run(["chip_smoke.py"])
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and "kernels" not in proc.stdout
+
+
+def test_chip_times_refuses_without_cuda():
+    """The kernel-time script prints no time without a card."""
+    proc = _run(["chip_times.py"])
+    assert proc.returncode != 0
+    assert "ms" not in proc.stdout
 
 
 def test_chip_smoke_refuses_outside_checkout(tmp_path):

@@ -30,6 +30,7 @@ from admm_deconv_tpu_torch.ops import diff, fft, prox
 from admm_deconv_tpu_torch.ops.kernels import _build
 from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES, prox_apply
 from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
+    _stencil_plain,
     fused_admm_stencil,
     fused_admm_stencil_mixed,
 )
@@ -71,20 +72,70 @@ def _assert_bf16_ulp(got, want):
     assert np.all(np.abs(got - want) <= ulp), float(np.max(np.abs(got - want) - ulp))
 
 
+def _fp32_pair(x, ux, uy, tau, mode):
+    """JAX's interpreted kernel and the port's stencil on the same inputs."""
+    want = jax_stencil(
+        jnp.asarray(x), jnp.asarray(ux), jnp.asarray(uy), jnp.asarray(tau),
+        mode=mode, interpret=True,
+    )
+    return want, fused_admm_stencil(_t(x), _t(ux), _t(uy), _t(tau), mode=mode)
+
+
+def _which_side_moved(x, ux, uy, tau, mode, want, got):
+    """For a failed comparison: both sides evaluated again, and each against
+    the plain stencil in float64, per output, with the misses per plane."""
+    want2, got2 = _fp32_pair(x, ux, uy, tau, mode)
+    f64 = [torch.from_numpy(np.asarray(a, dtype=np.float64)) for a in (x, ux, uy, tau)]
+    ref = _stencil_plain(*f64, mode)
+    lines = []
+    for k in range(3):
+        w, w2 = np.asarray(want[k]), np.asarray(want2[k])
+        g, g2, r = got[k].numpy(), got2[k].numpy(), ref[k].numpy()
+        miss = ~np.isclose(g, w, atol=1e-6, rtol=1e-6)
+        lines.append(
+            f"output {k}: {int(miss.sum())} of {miss.size} off, per plane "
+            f"{miss.reshape(miss.shape[0], -1).sum(axis=1).tolist()}; evaluated again, JAX "
+            f"moved {np.abs(w2 - w).max():.3e} and the port {np.abs(g2 - g).max():.3e}; "
+            f"against float64, JAX {np.abs(w - r).max():.3e} and the port {np.abs(g - r).max():.3e}"
+        )
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=["2x24x128", "3x40x96"])
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("per_plane", [False, True], ids=["scalar", "vector"])
 def test_stencil_fp32_matches_jax(rng, shape, mode, per_plane):
     x, ux, uy = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
     tau = _tau(rng, shape[0], per_plane)
-    want = jax_stencil(
-        jnp.asarray(x), jnp.asarray(ux), jnp.asarray(uy), jnp.asarray(tau),
-        mode=mode, interpret=True,
-    )
-    got = fused_admm_stencil(_t(x), _t(ux), _t(uy), _t(tau), mode=mode)
-    for g, w in zip(got, want):
+    want, got = _fp32_pair(x, ux, uy, tau, mode)
+    for g in got:
         assert g.dtype == torch.float32 and tuple(g.shape) == shape
-        _assert_fp32(g, w, mode)
+    try:
+        for g, w in zip(got, want):
+            _assert_fp32(g, w, mode)
+    except AssertionError as err:
+        moved = _which_side_moved(x, ux, uy, tau, mode, want, got)
+        raise AssertionError(f"{err}\n{moved}") from None
+
+
+@pytest.mark.parametrize("repeat", range(10))
+def test_stencil_flake_case_is_stable(rng, repeat):
+    """``test_stencil_fp32_matches_jax[scalar-iso-2x24x128]``, which failed
+    once in a full xdist run on a loaded host, evaluated twice on each side:
+    each side repeats itself bit for bit, and the port stays within the
+    case's tolerance of JAX.  Under xdist every repeat runs beside the other
+    workers' load."""
+    shape = SHAPES[0]
+    x, ux, uy = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    tau = _tau(rng, shape[0], False)
+    want, got = _fp32_pair(x, ux, uy, tau, "iso")
+    want2, got2 = _fp32_pair(x, ux, uy, tau, "iso")
+    report = _which_side_moved(x, ux, uy, tau, "iso", want, got)
+    for g, g2, w, w2 in zip(got, got2, want, want2):
+        assert torch.equal(g, g2), report
+        np.testing.assert_array_equal(np.asarray(w), np.asarray(w2), err_msg=report)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6, rtol=1e-6,
+                                   err_msg=report)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=["2x24x128", "3x40x96"])

@@ -1,0 +1,181 @@
+"""The row march behind the forward and tile-halo stencil kernels
+(``csrc/stencil_march.cuh``), on the CPU.
+
+A block of the march owns a strip of rows of one plane and reads only its
+own rows, the x row above and the (x, ux, uy) rows below.  So the strips,
+each computed by the tile kernel's plain twin ``_halo_plain`` from those
+rows alone, must rebuild the circular stencil ``_stencil_plain`` (and a
+tile's own ``_halo_plain``) bit for bit.  And ``march_geometry``, which
+cuts a stack into those strips and column chunks, must cover every row of
+every plane and every column once, never let a strip cross a plane, and
+give the small tile stacks enough blocks to fill an H100.  The kernel
+itself is held against the plain twins on the card by ``chip_smoke.py``.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES
+from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
+    _GRID_Y_MAX,
+    _MARCH_ROWS,
+    _MARCH_ROWS_FWD_FP32,
+    _MARCH_VEC,
+    _halo_plain,
+    _stencil_plain,
+    _tau_operand,
+    _vec_ok,
+    march_geometry,
+)
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+import chip_smoke  # noqa: E402
+
+torch.set_num_threads(2)
+
+H100_SMS = 132
+DUALS = [torch.float32, torch.bfloat16]
+
+
+def _stack(rng, shape, dual):
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    ux, uy = (torch.from_numpy((0.5 * rng.standard_normal(shape)).astype(np.float32)).to(dual)
+              for _ in range(2))
+    return x, ux, uy
+
+
+def _taus(rng, n):
+    return [torch.tensor(0.3), torch.from_numpy(rng.uniform(0.1, 0.5, n).astype(np.float32))]
+
+
+def _by_strips(x, ux, uy, top, bottom, tau, mode, rows):
+    """The stencil of a stack of h rows, strip by strip as the march cuts it:
+    each strip from its own rows, the x row above (``top`` above row 0) and
+    the x, ux, uy rows below (``bottom`` below row h - 1), by
+    ``_halo_plain``."""
+    h = x.shape[1]
+    outs = []
+    for r0 in range(0, h, rows):
+        r1 = min(r0 + rows, h)
+        x_top = top if r0 == 0 else x[:, r0 - 1:r0]
+        below = bottom if r1 == h else tuple(a[:, r1:r1 + 1] for a in (x, ux, uy))
+        outs.append(_halo_plain(x[:, r0:r1], ux[:, r0:r1], uy[:, r0:r1], x_top, *below,
+                                tau, mode))
+    return tuple(torch.cat([o[k] for o in outs], dim=1) for k in range(3))
+
+
+@pytest.mark.parametrize("dual", DUALS, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [1, 3, 16])
+@pytest.mark.parametrize("shape", [(3, 37, 101), (2, 1, 64), (2, 24, 128), (6, 8, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_strips_rebuild_the_circular_stencil(rng, shape, rows, dual):
+    """Strips of the circular stencil, the wrap rows (h - 1 above row 0, 0
+    below row h - 1) as their edge rows, equal it bit for bit."""
+    x, ux, uy = _stack(rng, shape, dual)
+    top = x[:, -1:]
+    bottom = (x[:, :1], ux[:, :1], uy[:, :1])
+    for tau in _taus(rng, shape[0]):
+        for mode in MODES:
+            want = _stencil_plain(x, ux, uy, tau, mode)
+            got = _by_strips(x, ux, uy, top, bottom, tau, mode, rows)
+            for g, w in zip(got, want):
+                assert g.dtype == dual and torch.equal(g, w), (mode, tau.ndim)
+
+
+@pytest.mark.parametrize("dual", DUALS, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [1, 3, 16])
+def test_strips_rebuild_a_tile_with_its_halos(rng, rows, dual):
+    """A tile's strips, its neighbours' rows as the outer edge rows, equal
+    the tile computed whole; fp32 halo rows beside bf16 duals, as the tiled
+    solver hands them."""
+    shape = (3, 20, 64)
+    n, _, w = shape
+    x, ux, uy = _stack(rng, shape, dual)
+    top, *bottom = (torch.from_numpy(rng.standard_normal((n, 1, w)).astype(np.float32))
+                    for _ in range(4))
+    for tau in _taus(rng, n):
+        for mode in MODES:
+            want = _halo_plain(x, ux, uy, top, *bottom, tau, mode)
+            got = _by_strips(x, ux, uy, top, tuple(bottom), tau, mode, rows)
+            for g, wnt in zip(got, want):
+                assert torch.equal(g, wnt), (mode, tau.ndim)
+
+
+def _card_stacks():
+    return sorted(set(chip_smoke.KERNEL_SHAPES) | set(chip_smoke.HALO_SHAPES)
+                  | set(chip_smoke.HALO_TIME_SHAPES) | set(chip_smoke.MISALIGNED_SHAPES))
+
+
+@pytest.mark.parametrize("rows", [_MARCH_ROWS_FWD_FP32, _MARCH_ROWS])
+@pytest.mark.parametrize("shape", _card_stacks(), ids=lambda s: "x".join(map(str, s)))
+def test_march_geometry_covers_each_row_and_column_once(shape, rows):
+    """Each block's strip (blockIdx.y) lies in one plane, and the strips
+    cover every row of every plane once; the threads' four columns cover W
+    once (the last thread's tail included), with no warp left idle; the grid
+    fits the launch limits and has at least 4 blocks for each SM of an H100
+    wherever the stack has that many strip rows."""
+    n, h, w = shape
+    g = march_geometry(n, h, w, rows)
+    assert 1 <= g.rows <= h and g.strips == -(-h // g.rows)
+    assert n * g.strips <= _GRID_Y_MAX and g.threads % 32 == 0 and g.threads <= 256
+    covered = np.zeros((n, h), dtype=np.int64)
+    for y in range(n * g.strips):
+        plane, r0 = y // g.strips, (y % g.strips) * g.rows
+        assert r0 < h  # no empty strip, and none spills into the next plane
+        covered[plane, r0:min(r0 + g.rows, h)] += 1
+    assert (covered == 1).all()
+    cols = np.zeros(w, dtype=np.int64)
+    for t in range(g.chunks * g.threads):
+        c = t * _MARCH_VEC
+        cols[c:c + min(_MARCH_VEC, max(w - c, 0))] += 1
+    assert (cols == 1).all()
+    assert g.chunks * g.threads - -(-w // _MARCH_VEC) < 32
+    blocks = g.chunks * n * g.strips
+    assert blocks >= min(4 * H100_SMS, g.chunks * n * h)
+
+
+def test_march_geometry_fills_the_small_tile_stacks():
+    """The 4-card tiles, the smallest stacks that carry real work, get at
+    least 4 blocks for each of the H100's SMs."""
+    for shape in [(12, 270, 1920), (6, 540, 1920), (3, 540, 3840)]:
+        for rows in (_MARCH_ROWS_FWD_FP32, _MARCH_ROWS):
+            g = march_geometry(*shape, rows)
+            assert g.chunks * shape[0] * g.strips >= 4 * H100_SMS, (shape, g)
+
+
+def test_march_geometry_keeps_a_huge_stack_in_the_grid():
+    """A stack with more strip rows than the grid's second axis takes taller
+    strips; one with more planes than that axis is refused."""
+    g = march_geometry(40000, 64, 64)
+    assert 40000 * g.strips <= _GRID_Y_MAX and g.rows * g.strips >= 64
+    with pytest.raises(ValueError, match="grid"):
+        march_geometry(_GRID_Y_MAX + 1, 1, 64)
+
+
+def test_vector_access_only_where_every_row_is_aligned():
+    """The march's 16-byte (fp32) and 8-byte (bf16) accesses only where the
+    width is a multiple of 4 and every array and halo row is aligned."""
+    a = torch.zeros(2, 3, 8)
+    b = torch.zeros(2, 3, 8, dtype=torch.bfloat16)
+    assert _vec_ok(8, a, b)
+    assert not _vec_ok(6, torch.zeros(2, 3, 6))
+    assert not _vec_ok(8, a, torch.zeros(49)[1:].view(2, 3, 8))
+    assert not _vec_ok(8, a, torch.zeros(49, dtype=torch.bfloat16)[1:].view(2, 3, 8))
+    assert not _vec_ok(8, a, halo_stride=6)
+    assert chip_smoke.misaligned(a).data_ptr() % 16 != 0
+
+
+def test_tau_goes_to_the_kernel_without_a_copy():
+    """A scalar tau is passed with plane stride 0 and a per-plane one with
+    its own stride: no per-call tensor of n copies."""
+    t = torch.tensor(0.25)
+    got, stride = _tau_operand(t)
+    assert stride == 0 and got.data_ptr() == t.data_ptr()
+    v = torch.arange(12, dtype=torch.float32)[::3]
+    got, stride = _tau_operand(v)
+    assert stride == 3 and got.data_ptr() == v.data_ptr()

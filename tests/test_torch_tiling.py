@@ -167,7 +167,11 @@ def test_halo_wrapper_rejects(case, err):
 
 @pytest.fixture(scope="module")
 def meshes():
-    return make_mesh({"tile": 1}, device_type="cpu"), jax_make_mesh({"tile": 1})
+    """A one-rank gloo mesh, closed with this module: a process group left
+    open would turn on data parallelism in a later module's ``Trainer``
+    (``tests/test_torch_data_parallel.py`` on the same xdist worker)."""
+    yield make_mesh({"tile": 1}, device_type="cpu"), jax_make_mesh({"tile": 1})
+    torch.distributed.destroy_process_group()
 
 
 @pytest.fixture(scope="module")
