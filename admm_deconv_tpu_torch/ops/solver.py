@@ -964,6 +964,16 @@ def _anderson_solve(y, psf, lam, rho, iters, prox, x_bounds, m, aa_reg, safeguar
     return _unfold(x, b, c).reshape(orig_shape), diags
 
 
+SOLVE_AUTO_MAX_ITERS = 400  # solve_auto's default max_iters
+
+
+def _auto_check_every(max_iters: int) -> int:
+    """The check_every of solve_auto's tolerance branch: the policy's where
+    it divides ``max_iters``, else 1 (JAX's rule)."""
+    k = policy().solve_auto_check_every
+    return k if max_iters % k == 0 and max_iters >= k else 1
+
+
 def solve_auto(
     y: torch.Tensor,
     psf: torch.Tensor | None = None,
@@ -973,7 +983,7 @@ def solve_auto(
     iters: int | None = None,
     eps_abs: float = 1e-4,
     eps_rel: float = 1e-3,
-    max_iters: int = 400,
+    max_iters: int = SOLVE_AUTO_MAX_ITERS,
     prox: str | Callable = "aniso",
     x_bounds: tuple[float, float] | None = None,
 ):
@@ -984,13 +994,15 @@ def solve_auto(
         ``check_every=iters`` block of :func:`tv_deconvolve_adaptive`: the
         q-carry stencil loop with true final residuals from the single
         end-of-run check, the carry stored bf16 on a CUDA tensor when
-        ``policy().bf16_state_on_tpu``.  Without the fast mid-loop (a
-        callable prox, ``iters <= 1``, prox "auto" resolving to "xla") it
-        is :func:`tv_deconvolve` with diagnostics.
+        ``policy().bf16_state_on_tpu`` (False by default: on the H100 bf16
+        storage was no faster than fp32; ``ops/policy.py``).  Without the
+        fast mid-loop (a callable prox, ``iters <= 1``, prox "auto"
+        resolving to "xla") it is :func:`tv_deconvolve` with diagnostics.
       * a tolerance (default): :func:`tv_deconvolve_adaptive` with
         residual-balanced rho and ``check_every=policy().solve_auto_check_every``
-        (1 when it does not divide ``max_iters``); bf16 storage as above,
-        except at deep tolerances (``eps_abs < policy().deep_eps_abs``).
+        (1 when it does not divide ``max_iters``; 8, measured on the
+        H100); bf16 storage as above, except at deep tolerances
+        (``eps_abs < policy().deep_eps_abs``).
 
     On a CPU tensor the fast mid-loop runs the kernels' plain twins, so
     this takes the adaptive branch where the JAX package on its CPU
@@ -1025,8 +1037,7 @@ def solve_auto(
             state_dtype="bfloat16" if bf16_state_ok(iters) else None,
         )
     deep = eps_abs < policy().deep_eps_abs
-    k = policy().solve_auto_check_every
-    check_every = k if max_iters % k == 0 and max_iters >= k else 1
+    check_every = _auto_check_every(max_iters)
     narrow = not deep and bf16_state_ok(check_every)
     return tv_deconvolve_adaptive(
         y, psf, lam, rho, max_iters=max_iters, prox=prox, x_bounds=x_bounds,

@@ -42,9 +42,10 @@ Phases, in order; any failure raises and exits non-zero:
 7. inference solvers: ``tv_deconvolve_adaptive`` on ``bench_suite.py``'s
    ttq_1080p and ttq_deep_512 scenes (kernel path against the plain path:
    iterations, rho, launches; seconds to tolerance at check_every 8 and 1);
-   ``solve_auto`` with a 50-iteration budget at 1080p batch 4 (bf16 state
-   by the policy, and fp32) and with a tolerance; ``composite_tv_deconvolve``
-   at 1080p (fp32 and bf16 carry, against the plain path, the box, PSNR)
+   ``solve_auto`` with a 50-iteration budget at 1080p batch 4 (the
+   policy's state dtype and the other one) and with a tolerance, each held
+   by its launch counts to the stencil and check_every the policy implies;
+   ``composite_tv_deconvolve`` at 1080p (fp32 and bf16 carry, against the plain path, the box, PSNR)
    and its adaptive twin; then the prox-dual and composite kernels alone
    against their plain twins and HBM floors;
 8. tiled solvers on a one-rank NCCL tile mesh: ``bench_suite.py``'s
@@ -60,7 +61,11 @@ Phases, in order; any failure raises and exits non-zero:
    on the card and on the CPU: loss, gradients and updated parameters;
 10. training path: ``bench.py``'s flagship step (AdmmDenoiser, 2x112^2x3,
    gmsd, AdaBelief lr 1e-4), fp32 and bf16 state, ms/step and kernel
-   launches per step;
+   launches per step; then the benchmark cell's fp32 gradient after 0,
+   100 and 300 steps against float64, plainly and along the routes (max
+   pools' argmaxes, clamps' branches) the card's forward took, with cuDNN,
+   with torch's own convolutions (held to 1e-4 along its routes) and with
+   the bank's plain composition besides;
 11. production trainer: ``Trainer.fit`` for one epoch at
     ``configs/train_cfg.json`` (batch 2, 256^2 crops) on seeded blocks +
     motion blur + noise pairs, CSV history, checkpoint and resume, ms/step;
@@ -133,6 +138,7 @@ The line before the last is the kernels' JSON record; the last is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -259,8 +265,9 @@ MULTI_WORLD1_DEADLINE = 150  # chip_smoke_multi.py --world 1 --size cut, seconds
 # PSNR of each on the CPU (synthetic_images(), 100 iterations, batch PSNR of
 # the clipped result): the JAX script's own calls, with prox_impl "pallas"
 # (its interpreted kernel) for bf16 state, which its CPU "auto" path lacks.
-# JAX's --auto on the CPU takes fp32 state (54.828896); its TPU path, bf16
-# state at check_every 8, gives 54.828594, as the card takes by the policy.
+# JAX's --auto on the CPU takes fp32 state (54.828896), as the card does by
+# the policy measured on the H100 (ops/policy.py); bf16 state at check_every
+# 8 gives 54.828594 in the JAX package.
 DEMO_BRANCHES = {"plain": [], "adaptive": ["--adaptive"], "l1": ["--l1", "0.002"],
                  "anderson": ["--anderson"], "auto": ["--auto"], "bf16_state": ["--bf16-state"]}
 DEMO_PSNR_JAX = {"plain": 54.55244064331055, "adaptive": 50.28718185424805,
@@ -886,6 +893,215 @@ def phase_flagship(dev, seed: int) -> dict:
     return out
 
 
+# Route flips (the flagship's fp32 gradient against float64): each max pool's
+# argmax and each clamp's branch, taken from one forward into another.
+CLAMP_TOP = {"relu6": 6.0, "relu1": 1.0}
+GRAD_ROUTE_STEPS = (0, 100, 300)  # AdaBelief steps before each read point
+# Whole-vector e along the fp32 forward's routes, with cuDNN off (the CPU's
+# bound in tests/test_torch_grad_parity.py).
+GRAD_ROUTED_LIMIT = 1e-4
+# The gradient's variants: cuDNN on, the bank's prox_impl ("auto": Q2-1 and
+# Q2-2; "xla": the plain composition, no kernel).
+GRAD_ROUTE_VARIANTS = {"cudnn": (True, "auto"), "native convolutions": (False, "auto"),
+                       "native convolutions, plain bank": (False, "xla")}
+
+
+def route(kind: str, x: torch.Tensor, window=None) -> tuple[str, torch.Tensor]:
+    """The route an NCHW tensor takes through a stride-1 SAME max pool (each
+    window's argmax, an index into its plane) or a clamp (0 below 0, 1
+    between, 2 above its top)."""
+    if kind == "pool":
+        return kind, torch.nn.functional.max_pool2d(
+            x, tuple(window), 1, (window[0] // 2, window[1] // 2), return_indices=True)[1]
+    return kind, (x > 0).to(torch.int8) + (x > CLAMP_TOP[kind]).to(torch.int8)
+
+
+def _route_takers(routes: list):
+    """A max pool and clamps on NCHW tensors that take the next of
+    ``routes`` in order, and a check that every route was taken."""
+    it = iter(routes)
+
+    def take(kind, shape):
+        got, r = next(it)
+        check(got == kind and r.numel() == int(np.prod(shape)),
+              f"route {got} {tuple(r.shape)} where the forward runs {kind} {tuple(shape)}")
+        return r.reshape(shape)
+
+    def pool(v):
+        return v.flatten(2).gather(2, take("pool", v.shape).flatten(2)).view_as(v)
+
+    def clamp(kind):
+        def f(v):
+            b = take(kind, v.shape)
+            return v * (b == 1) + CLAMP_TOP[kind] * (b == 2)
+        return f
+
+    def done():
+        check(next(it, None) is None, "routes left over")
+
+    return pool, clamp, done
+
+
+@contextlib.contextmanager
+def _patched(*changes):
+    """Set ``(module, name, value)`` attributes for the block, then restore."""
+    old = [(m, n, getattr(m, n)) for m, n, _ in changes]
+    try:
+        for m, n, v in changes:
+            setattr(m, n, v)
+        yield
+    finally:
+        for m, n, v in old:
+            setattr(m, n, v)
+
+
+@contextlib.contextmanager
+def port_routes(routes: list, follow: bool):
+    """The port's max pools and clamps record their routes (NCHW) into
+    ``routes`` or, with ``follow``, take them from it in order.  Build the
+    model inside: ``AdmmDenoiser`` keeps the ``relu1`` it finds."""
+    from admm_deconv_tpu_torch.models import blocks, zoo
+
+    nchw, nhwc = (lambda v: v.permute(0, 3, 1, 2)), (lambda v: v.permute(0, 2, 3, 1))
+    if follow:
+        pool, clamp, done = _route_takers(routes)
+        changes = [(blocks, "_max_pool_same", lambda x, window: nhwc(pool(nchw(x))))]
+        changes += [(m, kind, lambda x, f=clamp(kind): nhwc(f(nchw(x))))
+                    for m, kind in ((blocks, "relu6"), (zoo, "relu1"))]
+    else:
+        done = None
+
+        def rec_pool(x, window, pool=blocks._max_pool_same):
+            routes.append(route("pool", nchw(x.detach()), window))
+            return pool(x, window)
+
+        def rec(kind, fn):
+            def f(x):
+                routes.append(route(kind, nchw(x.detach())))
+                return fn(x)
+            return f
+
+        changes = [(blocks, "_max_pool_same", rec_pool),
+                   (blocks, "relu6", rec("relu6", blocks.relu6)),
+                   (zoo, "relu1", rec("relu1", zoo.relu1))]
+    with _patched(*changes):
+        yield
+    if done:
+        done()
+
+
+def reference_gradient(params: dict, x, t, routes: list, follow: bool,
+                       bank_iters: int | None = None) -> dict:
+    """``bench_torch.train_reference``'s float64 gradient, along ``routes``
+    (``follow``) or along its own, recorded into ``routes``."""
+    from bench_torch import train_reference as ref
+
+    if follow:
+        pool, clamp, done = _route_takers(routes)
+        changes = [(ref, "max_pool_same", lambda v, k: pool(v)),
+                   (ref, "relu6", clamp("relu6")), (ref, "relu1", clamp("relu1"))]
+    else:
+        done = None
+
+        def rec_pool(v, k, pool=ref.max_pool_same):
+            routes.append(route("pool", v.detach(), (k, k)))
+            return pool(v, k)
+
+        def rec(kind, fn):
+            def f(v):
+                routes.append(route(kind, v.detach()))
+                return fn(v)
+            return f
+
+        changes = [(ref, "max_pool_same", rec_pool), (ref, "relu6", rec("relu6", ref.relu6)),
+                   (ref, "relu1", rec("relu1", ref.relu1))]
+    kw = {} if bank_iters is None else {"bank_iters": bank_iters}
+    with _patched(*changes):
+        grads = ref.loss_and_grads(params, x, t, **kw)[1]
+    if done:
+        done()
+    return grads
+
+
+def route_flips(routes: list, routes64: list) -> dict:
+    """Max-pool windows and clamped elements, by kind, whose route differs
+    from float64's."""
+    check([k for k, _ in routes] == [k for k, _ in routes64], "the forwards' routes differ in kind")
+    flips = {kind: 0 for kind in ("pool", *CLAMP_TOP)}
+    for (kind, r), (_, r64) in zip(routes, routes64):
+        flips[kind] += int((r.reshape(r64.shape) != r64).sum())
+    return flips
+
+
+def phase_grad_routes(dev) -> dict:
+    """The flagship cell's fp32 gradient on the card against float64, plainly
+    and along the routes the card's forward took (the float64 reference made
+    to take the same max-pool argmaxes and clamp branches), at the cell's
+    shape and seed after 0, 100 and 300 AdaBelief steps of its inputs.  What
+    is left along the routes is the card's arithmetic: cuDNN's convolutions,
+    Q2-1 and Q2-2 (the step's 49 + 49 launches, counted).  The same gradient
+    with cuDNN off (torch's own CUDA convolutions, the kernels unchanged)
+    parts the two, and is held to the CPU's bound along its routes; with the
+    bank's plain composition as well, no kernel is on the path."""
+    from admm_deconv_tpu_torch.metrics import gmsd_loss
+    from admm_deconv_tpu_torch.models import AdmmDenoiser, init_parameters
+    from admm_deconv_tpu_torch.optim import AdaBelief
+    from admm_deconv_tpu_torch.utils.precision import fp32_convs
+    from bench_torch.cells import DEFAULT_SEEDS, TRAIN_LR, leaf_errors, train_inputs, whole_error
+
+    def summary(grads, want) -> dict:
+        by_leaf = leaf_errors(grads, want)
+        return {"whole": whole_error(grads, want)["all leaves"], "worst": max(by_leaf.values()),
+                "lam": by_leaf["DenoiserBank_0.lam"],
+                "worst_leaves": sorted(by_leaf, key=by_leaf.get)[::-1][:3]}
+
+    seed = DEFAULT_SEEDS["flagship_train_step"]
+    x_np, t_np = train_inputs(seed, FLAGSHIP_SHAPE)
+    x, t = torch.from_numpy(x_np).to(dev), torch.from_numpy(t_np).to(dev)
+    model = init_parameters(AdmmDenoiser(), torch.Generator().manual_seed(seed)).to(dev)
+    opt = AdaBelief(model.parameters(), TRAIN_LR)
+    out, done = {}, 0
+    for steps in GRAD_ROUTE_STEPS:
+        for i in range(done + 1, steps + 1):
+            with fp32_convs():
+                loss = gmsd_loss(model(x + 0.001 * i), t)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+            opt.step()
+        done = steps
+        xi = x + 0.001 * (steps + 1)
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        routes64 = []
+        g64 = reference_gradient(params, xi, t, routes64, follow=False)
+        row = {}
+        for name, (cudnn, prox_impl) in GRAD_ROUTE_VARIANTS.items():
+            routes = []
+            with port_routes(routes, follow=False), \
+                    _patched((torch.backends.cudnn, "enabled", cudnn)):
+                recorded = AdmmDenoiser(prox_impl=prox_impl).to(dev)
+                recorded.load_state_dict(model.state_dict())
+                reset_counts()
+                with fp32_convs():
+                    gmsd_loss(recorded(xi), t).backward()
+                torch.cuda.synchronize()
+                counts = read_counts()
+            launches = FLAGSHIP_LAUNCHES if prox_impl == "auto" else 0
+            want = expect_counts(fused_admm_stencil=launches, stencil_bwd=launches)
+            check(counts == want, f"grad routes, {name}: launches {counts} != {want}")
+            grads = {n: p.grad.detach().clone() for n, p in recorded.named_parameters()}
+            row[name] = {"flips": route_flips(routes, routes64), "plain": summary(grads, g64),
+                         "routed": summary(grads, reference_gradient(params, xi, t, routes,
+                                                                     follow=True))}
+            print(f"[grad routes] {FLAGSHIP_SHAPE} seed {seed}, after {steps} steps, {name}: "
+                  f"{json.dumps(row[name])}")
+        out[steps] = row
+        native = row["native convolutions"]["routed"]["whole"]
+        check(native <= GRAD_ROUTED_LIMIT,
+              f"with cuDNN off, the card's fp32 gradient along its own routes is {native:.3e} "
+              f"from float64 (limit {GRAD_ROUTED_LIMIT})")
+    return out
+
+
 def training_pairs(seed: int, n: int, batch: int, hw: tuple[int, int]):
     """(degraded, clean) batches: piecewise-constant blocks, a 7x7 motion
     blur and AWGN sigma 25/255 (the awgn_25_25 data of train_cfg.json)."""
@@ -1280,7 +1496,7 @@ def phase_demo(dev) -> dict:
 
     imgs = demo_deconv.synthetic_images()
     ref = np.stack(imgs)
-    stencil = "fused_admm_stencil_mixed" if _policy().bf16_state_on_tpu else "fused_admm_stencil"
+    stencil = _state_stencil()
     exact = {"plain": {"fused_admm_stencil": 99}, "bf16_state": {"fused_admm_stencil_mixed": 99},
              "l1": {"stencil_composite": 99}, "anderson": {"prox_dual": 99}}
     reached = {"adaptive": ("prox_dual",), "auto": (stencil, "prox_dual")}
@@ -2019,50 +2235,85 @@ def x_ok(x, y) -> bool:
     return x.shape == y.shape and bool(torch.isfinite(x).all())
 
 
+def used_check_every(counts: dict, iterations: int) -> int:
+    """The check_every an adaptive solve ran, from its launch counts: a
+    block of k > 2 launches k - 2 Q2-1 and 2 Q2-5, a k = 1 solve one Q2-5 an
+    iteration and no Q2-1; 0 when no Q2-5 ran."""
+    stencil = counts["fused_admm_stencil"] + counts["fused_admm_stencil_mixed"]
+    if stencil == 0 and counts["prox_dual"] == iterations:
+        return 1
+    blocks = counts["prox_dual"] // 2
+    return iterations // blocks if blocks else 0
+
+
 def phase_solve_auto(dev) -> dict:
     """``solve_auto``'s two branches on the card: a fixed budget on bench.py's
-    1080p batch-4 inputs, a tolerance on the ttq_1080p scene."""
+    1080p batch-4 inputs, timed with the policy's state dtype and with the
+    other, and a tolerance on the ttq_1080p scene.  Each run is held, by its
+    launch counts, to the stencil (``fused_admm_stencil`` for fp32 state,
+    ``fused_admm_stencil_mixed`` for bf16) and the check_every the policy
+    implies."""
     from admm_deconv_tpu_torch import solve_auto
     from admm_deconv_tpu_torch.ops.policy import overrides, policy
+    from admm_deconv_tpu_torch.ops.solver import SOLVE_AUTO_MAX_ITERS, _auto_check_every
+
+    def state(bf16: bool) -> str:
+        return "bf16" if bf16 else "fp32"
 
     rng = np.random.default_rng(0)
     y = torch.from_numpy(rng.random(BENCH_SHAPE, dtype=np.float64).astype(np.float32)).to(dev)
     psf = motion_psf(dev)
+    default = policy().bf16_state_on_tpu
+    print(f"[solve_auto] policy: bf16_state_on_tpu={default}, "
+          f"check_every={policy().solve_auto_check_every}, deep_eps_abs={policy().deep_eps_abs}")
     out = {}
-    for label, bf16 in (("policy (bf16 state)", True), ("bf16_state_on_tpu=False", False)):
+    for bf16 in (default, not default):
+        label = (f"policy ({state(bf16)} state)" if bf16 == default
+                 else f"bf16_state_on_tpu={bf16} ({state(bf16)} state)")
         with overrides(bf16_state_on_tpu=bf16):
             solve = lambda v: solve_auto(v, psf=psf, lam=LAM, rho=RHO, iters=BENCH_ITERS)  # noqa: E731
             reset_counts()
             x, d = solve(y)
             torch.cuda.synchronize()
             counts = read_counts()
-            stencil = "fused_admm_stencil_mixed" if bf16 else "fused_admm_stencil"
-            want = expect_counts(**{stencil: BENCH_ITERS - 2}, prox_dual=2)
-            check(counts == want, f"solve_auto(iters={BENCH_ITERS}) launches {counts} != {want}")
+            # The budget is one check_every=iters block.
+            want = expect_counts(**{_state_stencil(bf16): BENCH_ITERS - 2}, prox_dual=2)
+            check(counts == want, f"solve_auto(iters={BENCH_ITERS}) {label} launches {counts} "
+                  f"!= {want}")
+            used = used_check_every(counts, BENCH_ITERS)
+            check(used == BENCH_ITERS, f"solve_auto(iters={BENCH_ITERS}) ran check_every="
+                  f"{used}, want one block of {BENCH_ITERS}")
             check(x_ok(x, y) and int(d.iterations) == BENCH_ITERS, "solve_auto fixed budget")
             sec, _ = timed_solves(solve, y, REPEATS)
         out[label] = {"it_s": BENCH_ITERS / sec, "launches": counts}
         print(f"[solve_auto] iters={BENCH_ITERS} on {BENCH_SHAPE}, {label}: one "
               f"check_every={BENCH_ITERS} adaptive block, {BENCH_ITERS / sec:.2f} it/s "
               f"(median of {REPEATS}); final r {float(d.r_norm.max()):.4e}; launches {counts}")
-    print(f"[solve_auto] policy: bf16_state_on_tpu={policy().bf16_state_on_tpu}, "
-          f"check_every={policy().solve_auto_check_every}, deep_eps_abs={policy().deep_eps_abs}")
+    # The tolerance branch at the default eps (1e-4, not below deep_eps_abs)
+    # and max_iters: the policy's check_every where it divides max_iters.
+    implied = _auto_check_every(SOLVE_AUTO_MAX_ITERS)
     _, yt, psf = ttq_scene(dev, "ttq_1080p")
     solve = lambda v: solve_auto(v, psf=psf, lam=LAM, rho=RHO)  # noqa: E731
     reset_counts()
     x, d = solve(yt)
     torch.cuda.synchronize()
     counts = read_counts()
-    blocks = int(d.iterations) // policy().solve_auto_check_every
-    want = expect_counts(fused_admm_stencil_mixed=(policy().solve_auto_check_every - 2) * blocks,
-                         prox_dual=2 * blocks)
+    its = int(d.iterations)
+    used = used_check_every(counts, its)
+    check(used == implied, f"solve_auto tolerance ran check_every={used}, the policy implies "
+          f"{implied}")
+    blocks = its // implied
+    want = (expect_counts(**{_state_stencil(default): (implied - 2) * blocks},
+                          prox_dual=2 * blocks)
+            if implied > 1 else expect_counts(prox_dual=its))
     check(counts == want, f"solve_auto tolerance launches {counts} != {want}")
     check(x_ok(x, yt), "solve_auto tolerance output")
     sec, res = timed_solves(solve, yt, TTQ_REPEATS)
-    out["tolerance"] = {"s": sec, "iterations": int(d.iterations)}
-    print(f"[solve_auto] ttq_1080p tolerance branch (bf16 state by the policy): {sec:.4f} s to "
-          f"tolerance, iterations {[int(r[1].iterations) for r in res]}, rho "
-          f"{d.rho.unique().tolist()}; launches {counts}")
+    out["tolerance"] = {"s": sec, "iterations": its, "launches": counts}
+    print(f"[solve_auto] ttq_1080p tolerance branch ({state(default)} state and check_every="
+          f"{used} by the policy): {sec:.4f} s to tolerance, iterations "
+          f"{[int(r[1].iterations) for r in res]}, rho {d.rho.unique().tolist()}; launches "
+          f"{counts}")
     return out
 
 
@@ -2124,15 +2375,16 @@ def phase_composite(dev) -> dict:
 # this script's first H100 run, less 0.01 dB.  Values (dB):
 #   solve_auto(iters=100): JAX 54.99967 (fp32, its tv_deconvolve); bf16 in
 #     one check_every=100 block: JAX 54.93597, port CPU 54.93509, H100 54.92967;
-#   solve_auto tolerance branch (eps 1e-4/1e-3, check_every 8, 40 iterations,
-#     bf16): JAX 55.61966 (55.65547 fp32), port CPU 55.61136, H100 55.60950;
+#   solve_auto tolerance branch (eps 1e-4/1e-3, check_every 8, 40 iterations):
+#     fp32 JAX 55.65547, port CPU 55.65547, H100 55.65540; bf16 JAX 55.61966,
+#     port CPU 55.61136, H100 55.60950;
 #   composite (lam_l1 0.002, rho1 = rho2 = 0.021, box [0, 1]): JAX 51.47631
 #     fp32; bf16 JAX 51.39770, port CPU 51.39394, H100 51.39671;
 #   tv_deconvolve fp32 (also the tiled solver's): JAX 54.9997.
 QUALITY_FLOORS = {
     "tv_deconvolve fp32": 54.99,
     "solve_auto iters=100 fp32": 54.98967, "solve_auto iters=100 bf16": 54.91967,
-    "solve_auto tolerance bf16": 55.59950,
+    "solve_auto tolerance fp32": 55.64547, "solve_auto tolerance bf16": 55.59950,
     "composite fp32": 51.46631, "composite bf16": 51.38394,
 }
 
@@ -2148,13 +2400,14 @@ def phase_quality_solvers(dev) -> None:
     p = torch.from_numpy(psf).to(dev)
     runs = {}
     for bf16 in (False, True):
+        state = "bf16" if bf16 else "fp32"
         with overrides(bf16_state_on_tpu=bf16):
-            runs[f"solve_auto iters=100 {'bf16' if bf16 else 'fp32'}"] = solve_auto(
+            runs[f"solve_auto iters=100 {state}"] = solve_auto(
                 y, psf=p, lam=LAM, rho=RHO, iters=100)[0]
-    x, d = solve_auto(y, psf=p, lam=LAM, rho=RHO)
-    runs["solve_auto tolerance bf16"] = x
-    print(f"[quality] solve_auto tolerance branch: {int(d.iterations)} iterations "
-          f"(JAX on the CPU: 40), rho {d.rho.unique().tolist()} (JAX: 0.168)")
+            x, d = solve_auto(y, psf=p, lam=LAM, rho=RHO)
+        runs[f"solve_auto tolerance {state}"] = x
+        print(f"[quality] solve_auto tolerance branch, {state} state: {int(d.iterations)} "
+              f"iterations (JAX on the CPU: 40), rho {d.rho.unique().tolist()} (JAX: 0.168)")
     for carry, sdt in (("fp32", None), ("bf16", "bfloat16")):
         runs[f"composite {carry}"] = composite_tv_deconvolve(
             y, psf=p, iters=100, state_dtype=sdt, **COMPOSITE_KW)
@@ -2176,7 +2429,7 @@ def float64_numpy_inputs(dev) -> None:
     y64, p64 = blurred.astype(np.float64), psf.astype(np.float64)
     kw = {"lam": LAM, "rho": RHO}
     ckw = {k: v for k, v in COMPOSITE_KW.items() if k != "x_bounds"}
-    stencil = "fused_admm_stencil_mixed" if _policy().bf16_state_on_tpu else "fused_admm_stencil"
+    stencil = _state_stencil()
     cases = (
         ("tv_deconvolve", lambda y, p: adt.tv_deconvolve(y, p, iters=10, **kw),
          {"fused_admm_stencil": 9}),
@@ -2213,6 +2466,13 @@ def _policy():
     from admm_deconv_tpu_torch.ops.policy import policy
 
     return policy()
+
+
+def _state_stencil(bf16: bool | None = None) -> str:
+    """The Q2-1 counter a solve with bf16 loop state (``None``: the state
+    the policy picks) launches."""
+    bf16 = _policy().bf16_state_on_tpu if bf16 is None else bf16
+    return "fused_admm_stencil_mixed" if bf16 else "fused_admm_stencil"
 
 
 def phase_anderson(dev) -> dict:
@@ -2729,6 +2989,7 @@ def main() -> None:
     new_times |= phase_halo_times(dev, gen)
     phase_train_parity(dev, args.seed)
     flagship = phase_flagship(dev, args.seed)
+    phase_grad_routes(dev)
     trainer_ms = phase_trainer(dev, args.seed)
     data = phase_data()
     cli = phase_cli_train(dev, args.seed, data, trainer_ms)
@@ -2828,8 +3089,7 @@ def main() -> None:
     by_kernel["stencil_bwd"]["launches_by_path"] = {
         "train CLI epoch": cli["launches"]["stencil_bwd"],
         f"data-parallel {DP_STEPS} steps": dp["launches"]["stencil_bwd"]}
-    demo_stencil = "fused_admm_stencil_mixed" if _policy().bf16_state_on_tpu \
-        else "fused_admm_stencil"
+    demo_stencil = _state_stencil()
     by_kernel["fused_admm_stencil_mixed"]["launches_by_path"] = {
         "demo --bf16-state": demo["bf16_state"]["launches"]["fused_admm_stencil_mixed"]}
     by_kernel[demo_stencil]["launches_by_path"]["demo --auto"] = \
@@ -2855,6 +3115,14 @@ def main() -> None:
             f"{tuple(dp['crop'])} batch {dp['global_batch']}"] = dp["launches"][0][counter]
     by_kernel["fused_prox_dual"]["launches_by_path"] |= {
         f"demo {k}": demo[k]["launches"]["prox_dual"] for k in ("adaptive", "anderson", "auto")}
+    # solve_auto's two branches at the policy's defaults, each read just after
+    # its run.
+    auto_stencil = _state_stencil()
+    by_policy = next(v for k, v in auto.items() if k.startswith("policy"))
+    for path, counts in ((f"solve_auto iters={BENCH_ITERS} {BENCH_SHAPE}", by_policy["launches"]),
+                         ("solve_auto ttq_1080p tolerance", auto["tolerance"]["launches"])):
+        by_kernel[auto_stencil]["launches_by_path"][path] = counts[auto_stencil]
+        by_kernel["fused_prox_dual"]["launches_by_path"][path] = counts["prox_dual"]
     for name in ("fused_admm_stencil", "fused_admm_stencil_mixed", "stencil_bwd",
                  "fused_prox_dual", "fused_admm_stencil_composite", "fused_admm_stencil_halo"):
         check(all(v > 0 for v in by_kernel[name]["launches_by_path"].values()),

@@ -191,14 +191,22 @@ def test_adaptive_rejects(scene, kw, err):
         _port(y, psf, **{**KW, **kw})
 
 
+def _jax_defaults() -> dict:
+    """The JAX package's defaults of the port's policy fields: what JAX's
+    ``solve_auto`` decides by on the CPU (the port's own defaults are the
+    H100's)."""
+    return {k: v for k, v in vars(jax_policy_mod.AutoPolicy()).items() if k in policy_mod._FIELDS}
+
+
 def test_solve_auto_fixed_budget_matches_jax(scene):
     """``iters`` given: JAX's CPU backend takes ``tv_deconvolve`` with
     diagnostics, the port one ``check_every=iters`` adaptive block through
     the kernels' twins; the iterates and the final residuals agree."""
     _, y, psf = scene
     xj, dj = jax_solve_auto(jnp.asarray(y), psf=jnp.asarray(psf), lam=0.01, rho=0.05, iters=20)
-    xt, dt = solve_auto(torch.from_numpy(y), psf=torch.from_numpy(psf), lam=0.01, rho=0.05,
-                        iters=20)
+    with policy_mod.overrides(**_jax_defaults()):
+        xt, dt = solve_auto(torch.from_numpy(y), psf=torch.from_numpy(psf), lam=0.01, rho=0.05,
+                            iters=20)
     _close(xt, xj)
     _assert_diag(dt, dj)
     assert int(dt.iterations) == 20
@@ -208,10 +216,12 @@ def test_solve_auto_tolerance_matches_jax(scene):
     _, y, psf = scene
     kw = {"lam": 0.01, "rho": 0.05, "eps_abs": 1e-3, "eps_rel": 1e-2, "max_iters": 40}
     xj, dj = jax_solve_auto(jnp.asarray(y), psf=jnp.asarray(psf), **kw)
-    xt, dt = solve_auto(torch.from_numpy(y), psf=torch.from_numpy(psf), **kw)
+    with policy_mod.overrides(**_jax_defaults()):
+        xt, dt = solve_auto(torch.from_numpy(y), psf=torch.from_numpy(psf), **kw)
     _close(xt, xj)
     _assert_diag(dt, dj)
-    assert int(dt.iterations) % 8 == 0  # the policy's check_every=8 blocks
+    # JAX's check_every blocks (8 in both packages' defaults)
+    assert int(dt.iterations) % _jax_defaults()["solve_auto_check_every"] == 0
 
 
 def test_solve_auto_single_iteration_and_callable_prox_take_fixed_solver(scene):
@@ -228,12 +238,15 @@ def test_solve_auto_single_iteration_and_callable_prox_take_fixed_solver(scene):
 
 
 def test_policy_matches_jax_defaults_and_overrides(monkeypatch):
-    # The port keeps every JAX field but the FFT ones, with JAX's defaults.
+    # The port keeps every JAX field but the FFT ones, under JAX's names and
+    # types; JAX's whole default policy is one override away (its FFT fields
+    # are accepted and ignored).
     jax_fields = vars(jax_policy_mod.AutoPolicy())
     assert set(jax_fields) == set(policy_mod._FIELDS) | set(policy_mod._JAX_ONLY_FIELDS)
-    assert policy_mod.AutoPolicy() == policy_mod.AutoPolicy(
-        **{k: v for k, v in jax_fields.items() if k in policy_mod._FIELDS}
-    )
+    for name in policy_mod._FIELDS:
+        assert isinstance(getattr(policy_mod.AutoPolicy(), name), type(jax_fields[name])), name
+    with policy_mod.overrides(**jax_fields) as p:
+        assert p == policy_mod.AutoPolicy(**_jax_defaults())
     base = policy_mod.policy()
     with policy_mod.overrides(solve_auto_check_every=4) as p:
         assert p.solve_auto_check_every == 4 == policy_mod.policy().solve_auto_check_every
@@ -262,14 +275,47 @@ def test_policy_matches_jax_defaults_and_overrides(monkeypatch):
     assert policy_mod.policy() == policy_mod.AutoPolicy()
 
 
-def test_policy_check_every_steers_solve_auto(scene):
+def test_policy_defaults_are_the_h100_measurements(scene, monkeypatch):
+    """The defaults measured on the H100 (``chip_times.py --policy``,
+    PERF.md): fp32 state, check_every 8, deep_eps_abs 1e-4, the kernels.
+    And a CPU tensor never gets bf16 state, whatever the policy says."""
+    p = policy_mod.AutoPolicy()
+    assert (p.bf16_state_on_tpu, p.solve_auto_check_every, p.deep_eps_abs,
+            p.prox_impl_accel) == (False, 8, 1e-4, "pallas")
+    from admm_deconv_tpu_torch.ops import solver as solver_mod
+
+    asked = []
+    real = solver_mod.tv_deconvolve_adaptive
+
+    def spy(*args, **kw):
+        asked.append(kw.get("state_dtype"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(solver_mod, "tv_deconvolve_adaptive", spy)
+    _, y, psf = scene
+    yt, pt = torch.from_numpy(y), torch.from_numpy(psf)
+    for kw in ({"iters": 20}, {"eps_abs": 1e-3, "eps_rel": 1e-2, "max_iters": 40}):
+        with policy_mod.overrides(bf16_state_on_tpu=True, deep_eps_abs=0.0):
+            x16, _ = solve_auto(yt, psf=pt, lam=0.01, rho=0.05, **kw)
+        with policy_mod.overrides(bf16_state_on_tpu=False):
+            x32, _ = solve_auto(yt, psf=pt, lam=0.01, rho=0.05, **kw)
+        assert torch.equal(x16, x32), kw
+    assert asked == [None] * 4
+
+
+@pytest.mark.parametrize("k", [1, 8, 16], ids=["one", "h100_default", "not_a_divisor"])
+def test_policy_check_every_steers_solve_auto(scene, k):
+    """solve_auto keeps the policy's check_every where it divides max_iters
+    (40 here) and falls back to 1 where it does not."""
     _, y, psf = scene
     kw = {"lam": 0.01, "rho": 0.05, "eps_abs": 1e-3, "eps_rel": 1e-2, "max_iters": 40}
-    with policy_mod.overrides(solve_auto_check_every=1):
-        _, d1 = solve_auto(torch.from_numpy(y), psf=torch.from_numpy(psf), **kw)
-    _, dj = jax_adaptive(jnp.asarray(y), psf=jnp.asarray(psf), check_every=1, fft_mode="xla",
+    used = k if kw["max_iters"] % k == 0 else 1
+    with policy_mod.overrides(solve_auto_check_every=k):
+        _, d = solve_auto(torch.from_numpy(y), psf=torch.from_numpy(psf), **kw)
+    _, dj = jax_adaptive(jnp.asarray(y), psf=jnp.asarray(psf), check_every=used, fft_mode="xla",
                          prox_impl="xla", **kw)
-    assert int(d1.iterations) == int(dj.iterations)
+    assert int(d.iterations) == int(dj.iterations)
+    assert int(d.iterations) % used == 0
 
 
 @pytest.mark.parametrize("isotropic", [False, True])

@@ -156,15 +156,19 @@ def test_the_small_size_is_for_the_cpu_only():
     assert (6, 16, 16) in unchecked["bwd"] and (6, 32, 48) in unchecked["halo"]
 
 
+# Rank 1 acts before it joins the group, so the other ranks wait for it in
+# the rendezvous, which a peer that never comes does not end: waiting in a
+# collective, gloo may end them itself before the launcher sees rank 1 exit,
+# and the launcher then rightly names them as failed too.
 _RANK_SCRIPT = """
-import sys, time
+import os, sys, time
 sys.path.insert(0, {repo!r})
+if os.environ["RANK"] == "1":
+    {action}
 import torch, torch.distributed as dist
 from admm_deconv_tpu_torch.parallel import distributed
-distributed.initialize(device_type="cpu")
-if dist.get_rank() == 1:
-    {action}
-dist.all_reduce(torch.ones(1))  # the other ranks wait for rank 1 here
+distributed.initialize(device_type="cpu")  # the other ranks wait for rank 1 here
+dist.all_reduce(torch.ones(1))
 """
 
 
