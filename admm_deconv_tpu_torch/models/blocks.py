@@ -6,7 +6,10 @@ with per-image normalisation, and stride-1 same-size max-pool variants.
 
 Layout: NHWC at every module's API, as in the JAX package; inside, the
 convolutions take contiguous NCHW.  The convolutions run at full fp32
-(:func:`admm_deconv_tpu_torch.utils.precision.fp32_convs`).
+(:func:`admm_deconv_tpu_torch.utils.precision.fp32_convs`).  They are
+:class:`Conv2d` and :class:`ConvTranspose2d`, whose passes on the card
+(:class:`_Convolution`) take cuDNN's deterministic algorithms and keep the
+weight gradients of 5x5 kernels off cuDNN's Winograd path.
 
 Ownership follows flax: a module built inside another module's
 constructor belongs to that module and carries flax's scope name
@@ -23,6 +26,7 @@ kernels (drawn in flax's ``(kh, kw, in, out)`` layout) and zero biases;
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Sequence
 
 import torch
@@ -30,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from admm_deconv_tpu_torch.utils.params_io import conv_kernel_from_flax
-from admm_deconv_tpu_torch.utils.precision import fp32_convs
+from admm_deconv_tpu_torch.utils.precision import cudnn_flags, fp32_convs, fp32_matmuls
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -55,6 +59,107 @@ def normalise(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mu = torch.mean(x, dim=dims, keepdim=True)
     sigma = torch.sqrt(torch.var(x, dim=dims, keepdim=True, correction=0)) + eps
     return (x - mu) / sigma
+
+
+# Kernel sizes whose weight gradient runs on torch's own CUDA convolution
+# instead of cuDNN.  cuDNN 9.22 on an H100 takes its nonfused Winograd
+# kernels for the weight gradient of the flagship's 5x5 convolutions: they
+# read 1e-5 to 8e-4 from float64, where every other pass of every
+# convolution of the model reads under 5e-6 on cuDNN and torch's own reads
+# under 6e-7 (PERF.md, Findings).  Summed over the 5x5 layers they held the
+# flagship step's whole gradient some 4e-4 from float64, up to 2.5e-3.
+_OWN_WEIGHT_GRAD = {(5, 5)}
+
+
+def _on_torch_own(conv_pass: str, kernel_size) -> bool:
+    """Whether ``conv_pass`` (``"forward"``, ``"data"`` or ``"weight"``, the
+    weight gradient with the bias's) of a convolution with ``kernel_size``
+    runs on torch's own CUDA convolution rather than on cuDNN."""
+    return conv_pass == "weight" and tuple(kernel_size) in _OWN_WEIGHT_GRAD
+
+
+def _conv_pass(own: bool = False):
+    """The flags of one pass of a :class:`_Convolution`: cuDNN's
+    deterministic algorithms at full fp32, whatever the caller set (and
+    cuDNN itself only where the caller leaves it on); with ``own``, torch's
+    own convolution at full fp32 instead."""
+    if not own:
+        return cudnn_flags(deterministic=True, allow_tf32=False)
+    stack = contextlib.ExitStack()
+    stack.enter_context(cudnn_flags(enabled=False))
+    stack.enter_context(fp32_matmuls())  # torch's own convolution is a GEMM
+    return stack
+
+
+def _conv_forward(x, weight, bias, ctx):
+    """``aten::convolution`` of a :class:`_Convolution`."""
+    return torch.ops.aten.convolution(x, weight, bias, *ctx.geometry)
+
+
+def _conv_backward(g, x, weight, ctx, mask):
+    """``aten::convolution_backward`` of a :class:`_Convolution` for the
+    gradients ``mask`` asks for (input, weight, bias)."""
+    return torch.ops.aten.convolution_backward(g, x, weight, ctx.bias_sizes, *ctx.geometry,
+                                               list(mask))
+
+
+class _Convolution(torch.autograd.Function):
+    """A convolution module's pass on the card, with its backward.  Each
+    pass runs on cuDNN's deterministic algorithms at full fp32 whatever
+    flags the caller set (so the step's gradient is the same bits when
+    computed again, and a backward run outside :func:`fp32_convs` is still
+    full fp32), with cuDNN only where the caller leaves it on; the weight
+    and bias gradients of the kernel sizes of ``_OWN_WEIGHT_GRAD`` on
+    torch's own convolution instead (:func:`_on_torch_own`).
+
+    The flags are process-global (``torch.backends.cudnn``'s ``enabled``,
+    ``deterministic`` and ``allow_tf32``, and the matrix products' TF32
+    flag): each pass sets them and puts the caller's back after, in the
+    forward and in autograd's backward thread.  So convolutions of the
+    model must not run in two threads at once: one thread's pass could
+    restore the flags under the other's."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, conv):
+        transposed = isinstance(conv, nn.ConvTranspose2d)
+        ctx.geometry = (list(conv.stride), list(conv.padding), list(conv.dilation), transposed,
+                        list(conv.output_padding), conv.groups)
+        ctx.bias_sizes = None if bias is None else [bias.shape[0]]
+        ctx.kernel_size = tuple(conv.kernel_size)
+        ctx.save_for_backward(x, weight)
+        with _conv_pass(_on_torch_own("forward", ctx.kernel_size)):
+            return _conv_forward(x, weight, bias, ctx)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        gx = gw = gb = None
+        if need_x:
+            with _conv_pass(_on_torch_own("data", ctx.kernel_size)):
+                gx = _conv_backward(g, x, weight, ctx, (True, False, False))[0]
+        if need_w or need_b:
+            with _conv_pass(_on_torch_own("weight", ctx.kernel_size)):
+                _, gw, gb = _conv_backward(g, x, weight, ctx, (False, need_w, need_b))
+        return gx, gw, gb, None
+
+
+class _CardConv:
+    """A convolution module whose passes on the card are a
+    :class:`_Convolution`; on the CPU it is the torch module it extends."""
+
+    def forward(self, x):
+        if not x.is_cuda:
+            return super().forward(x)
+        return _Convolution.apply(x, self.weight, self.bias, self)
+
+
+class Conv2d(_CardConv, nn.Conv2d):
+    """``nn.Conv2d`` with :class:`_CardConv`'s passes on the card."""
+
+
+class ConvTranspose2d(_CardConv, nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with :class:`_CardConv`'s passes on the card."""
 
 
 def _conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -153,8 +258,8 @@ class UpDownBlock(nn.Module):
     def __init__(self, up_kernel, down_kernel, up_features: int, down_features: int,
                  *, in_features: int):
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(in_features, up_features, tuple(up_kernel))
-        self.Conv_0 = nn.Conv2d(up_features, down_features, tuple(down_kernel))
+        self.ConvTranspose_0 = ConvTranspose2d(in_features, up_features, tuple(up_kernel))
+        self.Conv_0 = Conv2d(up_features, down_features, tuple(down_kernel))
         self.out_features = down_features
         _ortho_init_(self.ConvTranspose_0)
         _ortho_init_(self.Conv_0)
@@ -169,7 +274,7 @@ class DownBlock(nn.Module):
 
     def __init__(self, kernel, features: int, pool_window, *, in_features: int):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, features, tuple(kernel))
+        self.Conv_0 = Conv2d(in_features, features, tuple(kernel))
         self.pool_window = tuple(pool_window)
         self.out_features = features
         _ortho_init_(self.Conv_0)
@@ -184,7 +289,7 @@ class UpBlock(nn.Module):
 
     def __init__(self, kernel, features: int, pool_window, *, in_features: int):
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(in_features, features, tuple(kernel))
+        self.ConvTranspose_0 = ConvTranspose2d(in_features, features, tuple(kernel))
         self.pool_window = tuple(pool_window)
         self.out_features = features
         _ortho_init_(self.ConvTranspose_0)

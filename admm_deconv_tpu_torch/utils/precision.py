@@ -21,15 +21,26 @@ import torch
 
 
 @contextlib.contextmanager
-def fp32_convs():
-    """Run cuDNN convolutions at full fp32 (no TF32) inside the block."""
+def cudnn_flags(**flags):
+    """Set attributes of ``torch.backends.cudnn`` (``enabled``,
+    ``deterministic``, ``allow_tf32``, ...) inside the block, and restore
+    the caller's settings after.  Unlike ``torch.backends.cudnn.flags``,
+    which sets every flag (its defaults turn cuDNN off) and whose flags
+    differ between torch releases, it touches only the flags it is given."""
     cudnn = torch.backends.cudnn
-    before = cudnn.allow_tf32
-    cudnn.allow_tf32 = False
+    before = {name: getattr(cudnn, name) for name in flags}
+    for name, value in flags.items():
+        setattr(cudnn, name, value)
     try:
         yield
     finally:
-        cudnn.allow_tf32 = before
+        for name, value in before.items():
+            setattr(cudnn, name, value)
+
+
+def fp32_convs():
+    """Run cuDNN convolutions at full fp32 (no TF32) inside the block."""
+    return cudnn_flags(allow_tf32=False)
 
 
 @contextlib.contextmanager

@@ -66,7 +66,12 @@ Phases, in order; any failure raises and exits non-zero:
    100 and 300 steps against float64, plainly and along the routes (max
    pools' argmaxes, clamps' branches) the card's forward took, with cuDNN,
    with torch's own convolutions (held to 1e-4 along its routes) and with
-   the bank's plain composition besides;
+   the bank's plain composition besides; then the recompute detector
+   (``phase_step_recompute``; alone: ``python3 chip_smoke.py
+   --recompute-only``): 200 steps of the ``flagship_train_step`` cell's
+   trajectory, each step's gradient computed twice at the same parameters
+   and input and the two held to each other (``RECOMPUTE_LIMITS``), every
+   20th step held to the float64 step by the cell's own check;
 11. production trainer: ``Trainer.fit`` for one epoch at
     ``configs/train_cfg.json`` (batch 2, 256^2 crops) on seeded blocks +
     motion blur + noise pairs, CSV history, checkpoint and resume, ms/step;
@@ -1087,10 +1092,12 @@ def cudnn_as(setting: str):
 
 
 def port_gradient(dev, state: dict, x, t, setting: str = "cudnn",
-                  prox_impl: str = "auto") -> tuple[dict, list, dict]:
+                  prox_impl: str = "auto", cotangents: dict | None = None
+                  ) -> tuple[dict, list, dict]:
     """The flagship's fp32 gradient at ``state`` on ``x`` under the cuDNN
     ``setting`` (``cudnn_as``), the bank on ``prox_impl``; the routes its
-    forward took (``port_routes``) and the kernel launches it made."""
+    forward took (``port_routes``) and the kernel launches it made.  With
+    ``cotangents``, the cotangents of ``RECOMPUTE_POINTS`` go there."""
     from admm_deconv_tpu_torch.metrics import gmsd_loss
     from admm_deconv_tpu_torch.models import AdmmDenoiser
     from admm_deconv_tpu_torch.utils.precision import fp32_convs
@@ -1099,6 +1106,8 @@ def port_gradient(dev, state: dict, x, t, setting: str = "cudnn",
     with port_routes(routes, follow=False), cudnn_as(setting):
         model = AdmmDenoiser(prox_impl=prox_impl).to(dev)
         model.load_state_dict(state)
+        if cotangents is not None:
+            _cotangent_probes(model, cotangents, [])
         reset_counts()
         with fp32_convs():
             gmsd_loss(model(x), t).backward()
@@ -1171,6 +1180,244 @@ def phase_grad_routes(dev) -> dict:
         check(native <= GRAD_ROUTED_LIMIT,
               f"with cuDNN off, the card's fp32 gradient along its own routes is {native:.3e} "
               f"from float64 (limit {GRAD_ROUTED_LIMIT})")
+    return out
+
+
+# The recompute detector (phase_step_recompute): steps of the
+# flagship_train_step cell's trajectory, the step's gradient against float64
+# every RECOMPUTE_F64_EVERY-th of them, and the steps whose disagreeing pair
+# is probed further (a third pass and a float64 gradient).
+RECOMPUTE_STEPS, RECOMPUTE_F64_EVERY, RECOMPUTE_PROBED = 200, 20, 4
+# The two gradients of one step, held to each other: the whole-vector
+# relative error and the worst leaf's.  On an H100 the step's two passes
+# read 0 in both at all 200 steps, their forwards bit-equal (cuDNN's
+# deterministic algorithms, models/blocks.py); with cuDNN's default
+# algorithms every pair of forwards differed and the pairs read up to
+# 1.58e-3 and 5.6e-3 (192 of 200 past these limits).  The wrong gradient
+# these limits were set for read 2.97e-2 and 0.330 (PERF.md, Findings):
+# each limit is 10 times or more below it.
+RECOMPUTE_LIMITS = {"whole": 1e-4, "worst": 1e-3}
+# The tensors whose cotangents the detector keeps, in the order the backward
+# reaches them: the model's output, the head's two up/down blocks, the
+# Parallel's channel concat and its two branches.
+RECOMPUTE_POINTS = ("output", "UpDownBlock_1", "UpDownBlock_0", "concat", "Autoencoder_0",
+                    "DenoiserBank_0")
+
+
+def _cotangent_probes(model, store: dict, flags: list):
+    """Forward hooks that keep the cotangent of each of ``RECOMPUTE_POINTS``'
+    outputs, where the output is not 0, in ``store``, and record into ``flags``
+    ``torch.backends.cudnn.allow_tf32`` as the backward's thread reads it
+    there.  Returns the hooks' handles."""
+    modules = {"output": model, "UpDownBlock_1": model.UpDownBlock_1,
+               "UpDownBlock_0": model.UpDownBlock_0,
+               "concat": model.net.layers[0].parts[0].layers[0],
+               "Autoencoder_0": model.Autoencoder_0, "DenoiserBank_0": model.DenoiserBank_0}
+
+    def keep(name):
+        def forward_hook(module, args, out):
+            # Where an output is 0 (clamped) the next clamp's tie passes half
+            # a cotangent that its own clamp then stops: kept as 0.
+            live = out.detach() != 0
+
+            def tensor_hook(g):
+                flags.append(torch.backends.cudnn.allow_tf32)
+                store[name] = g.detach() * live
+            out.register_hook(tensor_hook)  # returns None: the output stays
+        return forward_hook
+
+    return [modules[n].register_forward_hook(keep(n)) for n in RECOMPUTE_POINTS]
+
+
+def _kernel_shadows(misses: list):
+    """Q2-1's and Q2-2's launches, each also computed by its plain twin on
+    the same operands: the forward bit for bit, the backward as
+    ``phase_bwd_kernels`` holds it.  A launch that differs goes to
+    ``misses``."""
+    from admm_deconv_tpu_torch.ops.kernels import stencil_kernels as sk
+
+    fwd, bwd = sk._stencil_cuda, sk._stencil_bwd_cuda
+
+    def fwd_shadow(x, ux, uy, tau, mode):
+        got = fwd(x, ux, uy, tau, mode)
+        want = sk._stencil_plain(x, ux, uy, tau, mode)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            misses.append({"kernel": "stencil_fwd", "shape": list(x.shape), "max_abs": max(
+                float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))})
+        return got
+
+    def bwd_shadow(x, ux, uy, tau, gq, gux, guy, mode, need_x=True, need_u=True,
+                   need_tau=True):
+        got = bwd(x, ux, uy, tau, gq, gux, guy, mode, need_x, need_u, need_tau)
+        want = sk._bwd_plain(x, ux, uy, tau, gq, gux, guy, mode)
+        scale = _taub_abs_sum(x, ux, uy, tau.expand(x.shape[0]), gq, gux, guy, mode)
+        bad = [k for k, (g, w) in enumerate(zip(got[:3], want[:3]))
+               if g is not None and not fp32_close(g, w)]
+        if got[3] is not None and not bool(((got[3] - want[3]).abs() <= 1e-5 * scale).all()):
+            bad.append(3)
+        if bad:
+            misses.append({"kernel": "stencil_bwd", "shape": list(x.shape), "outputs": bad,
+                           "max_abs": [float((got[k] - want[k]).abs().max()) for k in bad]})
+        return got
+
+    return _patched((sk, "_stencil_cuda", fwd_shadow), (sk, "_stencil_bwd_cuda", bwd_shadow))
+
+
+def step_recompute(dev, steps: int = RECOMPUTE_STEPS, setting: str = "cudnn",
+                   prox_impl: str = "auto", shadow: bool = False) -> dict:
+    """A detector of a wrong backward that needs no float64 limit: the
+    ``flagship_train_step`` cell's trajectory (its seed, inputs ``x + 0.001
+    i``, ``AdmmDenoiser`` drawn from seed 2, gmsd, ``AdaBelief(1e-4)``,
+    ``fp32_convs``, cuDNN as the cell leaves it), each step's gradient
+    computed twice at the same parameters and input before ``opt.step()``
+    (which takes the second).  The model's convolutions take cuDNN's
+    deterministic algorithms, so the two passes are the same bits and a
+    pair beyond ``RECOMPUTE_LIMITS`` is a pass gone wrong (forwards that
+    differ in a bit are counted and printed).  Every
+    ``RECOMPUTE_F64_EVERY``-th step is also held, with the update and
+    AdaBelief's state, to the float64 step by the cell's own check and
+    ``TRAIN_TOLS`` (a fault that comes back when recomputed).  Each pass
+    keeps the cotangents of ``RECOMPUTE_POINTS``; of a disagreeing pair the
+    two cotangents' relative difference at each point is printed (in the
+    backward's order the first that parts is where the fault entered), and
+    the first ``RECOMPUTE_PROBED`` such steps get a third pass and a float64
+    gradient, to say which pass was wrong.  Every pass launches Q2-1 and
+    Q2-2 49 times each (counted) unless ``prox_impl`` is ``"xla"``.
+
+    ``setting`` is ``cudnn_as``'s, ``prox_impl`` the bank's, ``shadow``
+    holds every kernel launch against its plain twin (``_kernel_shadows``)."""
+    from admm_deconv_tpu_torch.metrics import gmsd_loss
+    from admm_deconv_tpu_torch.models import AdmmDenoiser, init_parameters
+    from admm_deconv_tpu_torch.optim import AdaBelief
+    from admm_deconv_tpu_torch.utils.precision import fp32_convs
+    from bench_torch import train_reference
+    from bench_torch.cells import (
+        DEFAULT_SEEDS,
+        FLAGSHIP,
+        TRAIN_LR,
+        check_train,
+        leaf_errors,
+        optimizer_errors,
+        snapshot,
+        train_inputs,
+        whole_error,
+    )
+
+    seed = DEFAULT_SEEDS[FLAGSHIP]
+    x_np, t_np = train_inputs(seed, FLAGSHIP_SHAPE)
+    x, t = torch.from_numpy(x_np).to(dev), torch.from_numpy(t_np).to(dev)
+    label = f"{setting}, bank {prox_impl}" + (", kernels shadowed" if shadow else "")
+    cot, flags, misses = {}, [], []
+    launches = FLAGSHIP_LAUNCHES if prox_impl == "auto" and dev.type == "cuda" else 0
+    want_counts = expect_counts(fused_admm_stencil=2 * launches, stencil_bwd=2 * launches)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(cudnn_as(setting))
+        if shadow:
+            stack.enter_context(_kernel_shadows(misses))
+        model = init_parameters(AdmmDenoiser(prox_impl=prox_impl),
+                                torch.Generator().manual_seed(seed)).to(dev)
+        opt = AdaBelief(model.parameters(), TRAIN_LR)
+        named = dict(model.named_parameters())
+        hooks = _cotangent_probes(model, cot, flags)
+
+        def one_pass(xi):
+            cot.clear()
+            with fp32_convs():
+                out = model(xi)
+                loss = gmsd_loss(out, t)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+            return {"out": out.detach(), "loss": float(loss.detach()),
+                    "grads": {n: p.grad.detach().clone() for n, p in named.items()},
+                    "cot": dict(cot)}
+
+        def departs(a, b) -> dict:
+            return {p: float(torch.linalg.vector_norm(a["cot"][p] - b["cot"][p])
+                             / torch.linalg.vector_norm(b["cot"][p]).clamp_min(1e-30))
+                    for p in RECOMPUTE_POINTS}
+
+        agreeing = {k: [] for k in RECOMPUTE_LIMITS}
+        forwards_differ, bad, f64_bad, f64_reads, probed, pairs = [], [], [], [], [], []
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            xi = x + 0.001 * i
+            f64 = i % RECOMPUTE_F64_EVERY == 0
+            before = snapshot(model, opt) if f64 else None
+            reset_counts()
+            a, b = one_pass(xi), one_pass(xi)
+            counts = read_counts()
+            check(counts == want_counts, f"recompute step {i}: launches {counts} != {want_counts}")
+            same_forward = torch.equal(a["out"], b["out"])
+            if not same_forward:
+                forwards_differ.append(i)
+            err = gradient_summary(a["grads"], b["grads"])
+            pairs.append([i, err["whole"], err["worst"]])
+            if any(err[k] > limit for k, limit in RECOMPUTE_LIMITS.items()):
+                bad.append(i)
+                row = {"step": i, "pair": err, "forwards_equal": same_forward,
+                       "cotangents_part": departs(a, b)}
+                if len(probed) < RECOMPUTE_PROBED:
+                    c = one_pass(xi)
+                    params = {n: p.detach().clone() for n, p in named.items()}
+                    g64 = train_reference.loss_and_grads(params, xi, t)[1]
+                    row |= {"third_against_first": gradient_summary(c["grads"], a["grads"]),
+                            "third_against_second": gradient_summary(c["grads"], b["grads"]),
+                            "float64": {k: whole_error(p["grads"], g64)["all leaves"]
+                                        for k, p in (("first", a), ("second", b),
+                                                     ("third", c))}}
+                    probed.append(i)
+                print(f"[recompute] {label}: step {i} disagrees: {json.dumps(row)}")
+            else:
+                for k, v in agreeing.items():
+                    v.append(err[k])
+            opt.step()
+            if f64:
+                after = snapshot(model, opt)
+                loss64, g64 = train_reference.loss_and_grads(before["params"], xi, t)
+                errors, advanced = optimizer_errors(before, after, b["grads"])
+                res = check_train(b["loss"], loss64, {
+                    "gradient": leaf_errors(b["grads"], g64),
+                    "gradient_all": whole_error(b["grads"], g64), **errors}, advanced)
+                f64_reads.append({"step": i, "ok": res["ok"], "loss": res["loss_rel_err"],
+                                  "gradient_all": res["gradient_all"]["rel_err"],
+                                  "gradient": res["gradient"]["rel_err"]})
+                if not res["ok"]:
+                    f64_bad.append(i)
+                    print(f"[recompute] {label}: step {i} fails the float64 check: "
+                          f"{json.dumps(res)}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for h in hooks:
+            h.remove()
+    out = {"setting": label, "steps": steps, "seconds": seconds, "disagreeing": len(bad),
+           "disagreeing_steps": bad,
+           "agreeing_max": {k: max(v, default=0.0) for k, v in agreeing.items()},
+           "agreeing_median": {k: float(np.median(v)) if v else 0.0
+                               for k, v in agreeing.items()},
+           "forwards_differ": len(forwards_differ), "forwards_differ_steps": forwards_differ[:20],
+           "float64_failed": f64_bad, "float64_reads": f64_reads, "probed": probed,
+           "allow_tf32_in_backward": sorted(set(flags)), "shadow_misses": misses[:10],
+           "shadow_miss_count": len(misses)}
+    print(f"[recompute] {FLAGSHIP_SHAPE} seed {seed}, {label}: {steps} steps in {seconds:.1f} s; "
+          f"{json.dumps(out)}")
+    return out | {"pairs": pairs}
+
+
+def phase_step_recompute(dev, **kw) -> dict:
+    """:func:`step_recompute` (the cell's step, cuDNN as the cell has it and
+    the bank on its kernels unless ``kw`` says otherwise), failed on any
+    disagreeing step, float64 check, kernel launch unlike its plain twin, or
+    TF32 in the backward."""
+    out = step_recompute(dev, **kw)
+    label, bad, f64_bad = out["setting"], out["disagreeing_steps"], out["float64_failed"]
+    flags = out["allow_tf32_in_backward"]
+    check(flags == [False], f"recompute {label}: cuDNN's TF32 flag in the backward {flags}")
+    check(not out["shadow_miss_count"], f"recompute {label}: {out['shadow_miss_count']} "
+          f"kernel launches differ from their plain twins: {out['shadow_misses'][:3]}")
+    check(not bad and not f64_bad,
+          f"recompute {label}: {len(bad)} of {out['steps']} steps disagree when recomputed "
+          f"(steps {bad}); {len(f64_bad)} fail the float64 check (steps {f64_bad})")
     return out
 
 
@@ -3057,12 +3304,20 @@ def phase_new_kernel_times(dev, gen) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--recompute-only", action="store_true",
+                    help="run only the recompute detector (phase_step_recompute)")
     args = ap.parse_args()
 
     dev = phase_device()
     import admm_deconv_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     check("jax" not in sys.modules, "the port imported jax")
+    if args.recompute_only:
+        out = phase_step_recompute(dev)
+        print(f"[summary] nvidia-smi: {nvidia_smi()}")
+        print(json.dumps({"ok": True, "recompute": {k: out[k] for k in (
+            "steps", "disagreeing", "float64_failed", "agreeing_max", "forwards_differ")}}))
+        return
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     phase_build()
     worst = phase_kernels(dev, gen)
@@ -3085,6 +3340,7 @@ def main() -> None:
     phase_train_parity(dev, args.seed)
     flagship = phase_flagship(dev, args.seed)
     phase_grad_routes(dev)
+    phase_step_recompute(dev)
     trainer_ms = phase_trainer(dev, args.seed)
     data = phase_data()
     cli = phase_cli_train(dev, args.seed, data, trainer_ms)

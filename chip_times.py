@@ -16,6 +16,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_times.py --train-check N  # the flagship step cell's check, N runs
     python3 chip_times.py --windows DIR  # host-bound cells at 100 and 400 timed units
     python3 chip_times.py --control-reads NAME N  # one control through its cell's check, N runs
+    python3 chip_times.py --step-recompute VARIANTS [--steps N]  # the recompute detector
+    python3 chip_times.py --route-hunt SETTINGS  # failing float64 reads taken apart
+    python3 chip_times.py --settings-at-states SETTINGS  # every setting at shared states
+    python3 chip_times.py --conv-passes SETTINGS  # each convolution's passes: ms, error
+    python3 chip_times.py --step-cells SETTINGS [--rounds N]  # both step cells by setting
+    python3 chip_times.py --trainer-phases  # chip_smoke.py's trainer phases alone: ms/step
 
 The first form prints, for each of the port's five kernels at the stacks
 ``chip_smoke.py`` times them, the ms per call from the host (``cuda_ms``)
@@ -164,6 +170,39 @@ run and check, as ``python3 -m bench_torch --controls`` runs it
 (``CONTROL_READ_REPEATS`` timed units; the check reads the last), and
 prints a line a run with every reading of the check and whether it
 rejected the control; last, the runs in which it did not.
+
+``--step-recompute VARIANTS`` runs ``chip_smoke.step_recompute`` (the
+``flagship_train_step`` cell's trajectory, each step's gradient computed
+twice, every 20th held to float64) for ``--steps`` steps under each named
+variant of ``RECOMPUTE_VARIANTS`` in turn: cuDNN as the cell has it,
+deterministic, or off; the bank on its plain composition; every Q2-1 and
+Q2-2 launch shadowed by its plain twin.  A line a variant with its
+disagreeing steps, the largest difference of the agreeing pairs and, of
+each disagreeing pair, the first cotangent that parts; last, a summary.
+
+``--route-hunt SETTINGS`` runs the cell's trajectory under each setting of
+``conv_setting`` (cuDNN's flags, the parent's convolutions, cuDNN on
+channels-last views, passes split between cuDNN and torch's own), holds
+every 5th step's gradient to float64, and takes a few failing (and
+passing) reads apart: each setting's gradient at that state against
+float64 plainly and along the routes its own forward recorded, and the
+cotangents at ``RECOMPUTE_POINTS`` against float64's along them.
+``--settings-at-states SETTINGS`` runs one trajectory with the port as it
+is and, every 5th step, every named setting's gradient at that state
+against float64 (besides ``conv_setting``'s: the bank on its plain
+composition, the bank's solve in float64, the port's model in float64).
+``--conv-passes SETTINGS`` reads each convolution's three passes at
+batches 2 and 8 under each setting (``conv_rows``).  ``--step-cells
+SETTINGS`` runs the two step cells by ``bench_torch``'s own ``main`` under
+each setting, the order turned each round.
+
+``--trainer-phases`` runs ``chip_smoke.py``'s ``phase_trainer`` (the
+production trainer at 256^2: an epoch, a resume, ms per train step) and
+``phase_data_parallel`` (the trainer in a one-rank NCCL group beside it
+without one, ms per step of each) alone, and prints their ms/step on one
+line.  Run from the root of another checkout (``cd DIR && python3
+/path/to/chip_times.py --trainer-phases``) it times that checkout's
+``chip_smoke.py`` and package, so a parent and a change compare in one call.
 """
 
 from __future__ import annotations
@@ -210,6 +249,26 @@ WINDOW_REPEATS, WINDOW_ROUNDS = (100, 400), 4
 # --control-reads: the timed units a run, as the command's --controls and
 # chip_smoke.py's phase_bench run most controls.
 CONTROL_READ_REPEATS = 100
+# --step-recompute: chip_smoke.step_recompute's variants, each its cuDNN
+# setting (chip_smoke.cudnn_as), the bank's prox_impl and whether every Q2-1
+# and Q2-2 launch is shadowed by its plain twin.
+RECOMPUTE_VARIANTS = {"cudnn": ("cudnn", "auto", False),
+                      "cudnn deterministic": ("cudnn deterministic", "auto", False),
+                      "native convolutions": ("native convolutions", "auto", False),
+                      "plain bank": ("cudnn", "xla", False),
+                      "shadow": ("cudnn", "auto", True)}
+# --route-hunt: the steps of the cell's trajectory under each cuDNN setting,
+# every how many steps the step's gradient is held to float64, how many
+# failing reads (and, for comparison, passing ones) are taken apart.
+HUNT_STEPS, HUNT_EVERY, HUNT_FAILING, HUNT_PASSING = 300, 5, 4, 2
+HUNT_SETTINGS = ("cudnn", "cudnn deterministic", "native convolutions", "cudnn nhwc",
+                 "native forward", "native wgrad", "hybrid")
+# --settings-at-states: the steps of the cell's trajectory (cuDNN as the cell
+# has it), every how many steps its state is read, and the thresholds each
+# setting's gradient is counted above (whole, worst leaf) beside the cell's.
+STATES_STEPS, STATES_EVERY, STATES_ABOVE = 400, 5, (1e-3, 5e-3)
+# --step-cells: the two step cells, timed under each cuDNN setting in turns.
+STEP_CELLS = ("flagship_train_step", "flagship_train_step_b8")
 
 
 def profiler_ms(fn, calls: int, kernel: str) -> float:
@@ -1075,6 +1134,293 @@ def train_check_rows(dev, card: dict, runs: int) -> None:
           "failed_runs": failed})
 
 
+def recompute_rows(card: dict, dev, variants: list[str], steps: int) -> None:
+    """The ``--step-recompute`` rows (module docstring)."""
+    summary = {}
+    for name in variants:
+        setting, prox_impl, shadow = RECOMPUTE_VARIANTS[name]
+        out = cs.step_recompute(dev, steps, setting, prox_impl, shadow)
+        summary[name] = {"disagreeing": out["disagreeing_steps"],
+                         "float64_failed": out["float64_failed"],
+                         "agreeing_max": out["agreeing_max"],
+                         "forwards_differ": out["forwards_differ"],
+                         "shadow_misses": out["shadow_miss_count"]}
+        print(json.dumps(card | {"row": "step recompute", "variant": name, **out}), flush=True)
+    print(json.dumps(card | {"row": "step recompute summary", "steps": steps, **summary}),
+          flush=True)
+
+
+# The split settings of ``conv_setting``: the passes (of ``blocks._on_torch_own``)
+# each runs on torch's own convolutions, for every convolution or for those of
+# one kernel size; the other passes run as ``blocks._Convolution`` runs them.
+SPLIT_SETTINGS = {"native forward": ("forward",), "native wgrad": ("weight",),
+                  "hybrid": ("forward", "weight"), "native wgrad 5x5": ("weight",)}
+SPLIT_KERNEL = {"native wgrad 5x5": (5, 5)}
+
+
+def conv_setting(name: str):
+    """A block with the model's convolutions under ``name``: a setting of
+    ``cs.cudnn_as``; ``"parent convs"``, each convolution the torch module
+    it extends (every pass on cuDNN as the caller sets it, not through
+    ``blocks._Convolution``); ``"cudnn nhwc"``, cuDNN handed the NHWC
+    activations as they lie (channels-last NCHW views, not copied to
+    contiguous NCHW); or a split of ``SPLIT_SETTINGS``: ``blocks._Convolution``
+    with the passes it names on torch's own CUDA convolutions, the others on
+    cuDNN's deterministic algorithms."""
+    from admm_deconv_tpu_torch.models import blocks
+    from admm_deconv_tpu_torch.utils.precision import fp32_convs
+
+    def module_pass(conv, x):  # the torch module's own forward, as the parent ran it
+        return super(blocks._CardConv, conv).forward(x)
+
+    if name == "parent convs":  # every pass on cuDNN as the caller sets it
+        return cs._patched((blocks._CardConv, "forward", module_pass))
+    if name == "cudnn nhwc":
+        def conv_nhwc(conv, x):
+            with fp32_convs():
+                return module_pass(conv, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return cs._patched((blocks, "_conv_nhwc", conv_nhwc))
+    if name in SPLIT_SETTINGS:
+        passes, kernel = SPLIT_SETTINGS[name], SPLIT_KERNEL.get(name)
+
+        def on_torch_own(conv_pass, kernel_size):
+            return conv_pass in passes and kernel in (None, tuple(kernel_size))
+        return cs._patched((blocks, "_on_torch_own", on_torch_own))
+    return cs.cudnn_as(name)
+
+
+def port_gradient_f64(dev, state: dict, x, t) -> dict:
+    """The port's own model in float64 (the bank on its plain composition,
+    which computes in the input's dtype) at ``state`` on ``x``: its
+    gradient, to hold the port's formulas to the float64 reference."""
+    from admm_deconv_tpu_torch.metrics import gmsd_loss
+    from admm_deconv_tpu_torch.models import AdmmDenoiser
+
+    model = AdmmDenoiser(prox_impl="xla").to(dev).double()
+    model.load_state_dict(state)
+    gmsd_loss(model(x.double()), t.double()).backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def port_gradient_under(setting: str, dev, state: dict, x, t, cotangents=None):
+    """``cs.port_gradient`` with the convolutions under ``conv_setting``;
+    ``"plain bank"`` is cuDNN with the bank on its plain composition,
+    ``"float64"`` the port's model in float64 (``port_gradient_f64``)."""
+    if setting == "float64":
+        return port_gradient_f64(dev, state, x, t), [], {}
+    if setting == "plain bank":
+        return cs.port_gradient(dev, state, x, t, "cudnn", "xla", cotangents=cotangents)
+    if setting == "bank float64":  # the bank's solve alone in float64, plainly
+        from admm_deconv_tpu_torch.models import zoo
+
+        solve = zoo.tv_deconvolve
+
+        def solve64(y, lam, rho, prox_impl, **kw):
+            return solve(y.double(), lam=lam.double(), rho=rho.double(), prox_impl="xla",
+                         **kw).to(y.dtype)
+        with cs._patched((zoo, "tv_deconvolve", solve64)):
+            return cs.port_gradient(dev, state, x, t, "cudnn", "xla", cotangents=cotangents)
+    with conv_setting(setting):
+        return cs.port_gradient(dev, state, x, t,
+                                setting if setting in ("cudnn", "cudnn deterministic",
+                                                       "native convolutions") else "cudnn",
+                                cotangents=cotangents)
+
+
+def reference_with_cotangents(params: dict, x, t, routes: list) -> tuple[dict, dict]:
+    """The float64 gradient along ``routes`` (``cs.reference_gradient``) and
+    the float64 cotangents at ``cs.RECOMPUTE_POINTS`` where the output is
+    not 0 (NHWC, the concat's as the two branches' side by side)."""
+    from bench_torch import train_reference as ref
+
+    store = {}
+
+    def keep(name, v, nchw=True):
+        live = v.detach() != 0  # as the port's probes keep it
+
+        def hook(g):
+            g = (g.detach() * live)
+            store[name] = g.permute(0, 2, 3, 1) if nchw else g
+        v.register_hook(hook)
+        return v
+
+    up_down, autoencoder, bank, flagship = (ref.up_down, ref.autoencoder, ref.denoiser_bank,
+                                            ref.flagship)
+
+    def up_down_kept(params, name, v):
+        out = up_down(params, name, v)
+        return keep(name, out) if name in ("UpDownBlock_0", "UpDownBlock_1") else out
+
+    def autoencoder_kept(params, v, level: int = 5):
+        out = autoencoder(params, v, level)
+        return keep("Autoencoder_0", out) if level == 5 else out
+
+    with cs._patched((ref, "up_down", up_down_kept), (ref, "autoencoder", autoencoder_kept),
+                     (ref, "denoiser_bank",
+                      lambda *a, **k: keep("DenoiserBank_0", bank(*a, **k))),
+                     (ref, "flagship", lambda *a, **k: keep("output", flagship(*a, **k), False))):
+        grads = cs.reference_gradient(params, x, t, routes, follow=True)
+    store["concat"] = torch.cat([store["Autoencoder_0"], store["DenoiserBank_0"]], dim=-1)
+    return grads, store
+
+
+def take_apart(dev, params: dict, state: dict, x, t, settings) -> dict:
+    """The cell's gradient at one state under each of ``settings``
+    (``conv_setting``), each pass against float64 plainly and along the
+    routes its own forward took, with the relative error of its cotangent
+    at each of ``cs.RECOMPUTE_POINTS`` against float64's along the same
+    routes."""
+    from bench_torch.cells import whole_error
+
+    routes64 = []
+    g64 = cs.reference_gradient(params, x, t, routes64, follow=False)
+    out = {}
+    for setting in settings:
+        cot = {}
+        grads, routes, _ = port_gradient_under(setting, dev, state, x, t, cot)
+        g64r, cot64 = reference_with_cotangents(params, x, t, routes)
+        out[setting] = {
+            "flips": cs.route_flips(routes, routes64),
+            "plain": cs.gradient_summary(grads, g64),
+            "routed": cs.gradient_summary(grads, g64r),
+            "routed_whole_float64_against_own": whole_error(g64r, g64)["all leaves"],
+            "cotangents_routed": {p: float(torch.linalg.vector_norm(cot[p] - cot64[p].float())
+                                           / torch.linalg.vector_norm(cot64[p]))
+                                  for p in cs.RECOMPUTE_POINTS}}
+    return out
+
+
+def route_hunt_rows(card: dict, dev, settings: list[str], steps: int) -> None:
+    """The ``--route-hunt`` rows (module docstring)."""
+    from admm_deconv_tpu_torch.metrics import gmsd_loss
+    from admm_deconv_tpu_torch.models import AdmmDenoiser, init_parameters
+    from admm_deconv_tpu_torch.optim import AdaBelief
+    from admm_deconv_tpu_torch.utils.precision import fp32_convs
+    from bench_torch import train_reference
+    from bench_torch.cells import (
+        DEFAULT_SEEDS,
+        FLAGSHIP,
+        TRAIN_LR,
+        TRAIN_TOLS,
+        leaf_errors,
+        train_inputs,
+        whole_error,
+    )
+
+    def emit(row: dict) -> None:
+        print(json.dumps(card | row), flush=True)
+
+    seed = DEFAULT_SEEDS[FLAGSHIP]
+    x_np, t_np = train_inputs(seed, cs.FLAGSHIP_SHAPE)
+    x, t = torch.from_numpy(x_np).to(dev), torch.from_numpy(t_np).to(dev)
+    summary = {}
+    for setting in settings:
+        model = init_parameters(AdmmDenoiser(), torch.Generator().manual_seed(seed)).to(dev)
+        opt = AdaBelief(model.parameters(), TRAIN_LR)
+        failing, passing, reads = 0, 0, []
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            xi = x + 0.001 * i
+            with conv_setting(setting), fp32_convs():
+                loss = gmsd_loss(model(xi), t)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+            if i % HUNT_EVERY == 0:
+                params = {n: p.detach().clone() for n, p in model.named_parameters()}
+                grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+                g64 = train_reference.loss_and_grads(params, xi, t)[1]
+                whole = whole_error(grads, g64)["all leaves"]
+                leaf = max(leaf_errors(grads, g64).values())
+                ok = whole <= TRAIN_TOLS["gradient_all"] and leaf <= TRAIN_TOLS["gradient"]
+                reads.append([i, whole, leaf])
+                if (not ok and failing < HUNT_FAILING) or (ok and passing < HUNT_PASSING):
+                    failing, passing = failing + (not ok), passing + ok
+                    emit({"row": "route hunt read", "setting": setting, "step": i, "ok": ok,
+                          "whole": whole, "worst_leaf": leaf,
+                          "taken_apart": take_apart(dev, params, model.state_dict(), xi, t,
+                                                    (setting, "native convolutions"))})
+            opt.step()
+        bad = [r for r in reads if r[1] > TRAIN_TOLS["gradient_all"]
+               or r[2] > TRAIN_TOLS["gradient"]]
+        summary[setting] = {"reads": len(reads), "failed": [r[0] for r in bad],
+                            "whole_max": max(r[1] for r in reads),
+                            "whole_median": float(np.median([r[1] for r in reads])),
+                            "leaf_max": max(r[2] for r in reads),
+                            "seconds": time.perf_counter() - t0}
+        emit({"row": "route hunt", "setting": setting, "steps": steps, **summary[setting],
+              "readings": reads})
+    emit({"row": "route hunt summary", **summary})
+
+
+def settings_at_states_rows(card: dict, dev, settings: list[str], steps: int) -> None:
+    """The ``--settings-at-states`` rows (module docstring)."""
+    from admm_deconv_tpu_torch.metrics import gmsd_loss
+    from admm_deconv_tpu_torch.models import AdmmDenoiser, init_parameters
+    from admm_deconv_tpu_torch.optim import AdaBelief
+    from admm_deconv_tpu_torch.utils.precision import fp32_convs
+    from bench_torch import train_reference
+    from bench_torch.cells import DEFAULT_SEEDS, FLAGSHIP, TRAIN_LR, TRAIN_TOLS, train_inputs
+
+    seed = DEFAULT_SEEDS[FLAGSHIP]
+    x_np, t_np = train_inputs(seed, cs.FLAGSHIP_SHAPE)
+    x, t = torch.from_numpy(x_np).to(dev), torch.from_numpy(t_np).to(dev)
+    model = init_parameters(AdmmDenoiser(), torch.Generator().manual_seed(seed)).to(dev)
+    opt = AdaBelief(model.parameters(), TRAIN_LR)
+    reads = {s: [] for s in settings}
+    for i in range(1, steps + 1):
+        xi = x + 0.001 * i
+        if i % STATES_EVERY == 0:
+            params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            g64 = train_reference.loss_and_grads(params, xi, t)[1]
+            row = {}
+            for k, setting in enumerate(settings):
+                grads = port_gradient_under(setting, dev, model.state_dict(), xi, t)[0]
+                e = cs.gradient_summary(grads, g64)
+                reads[setting].append([i, e["whole"], e["worst"], e["lam"]])
+                row[f"{k} {setting}"] = [e["whole"], e["worst"], e["lam"], e["worst_leaves"][0]]
+            print(json.dumps(card | {"row": "settings at a state", "step": i, **row}), flush=True)
+        with fp32_convs():
+            loss = gmsd_loss(model(xi), t)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        opt.step()
+    summary = {}
+    for setting, r in reads.items():
+        a = np.array(r)
+        summary[setting] = {
+            "states": len(a),
+            "failing": [int(s) for s, w, lf, _ in a if w > TRAIN_TOLS["gradient_all"]
+                        or lf > TRAIN_TOLS["gradient"]],
+            "whole_above": int((a[:, 1] > STATES_ABOVE[0]).sum()),
+            "leaf_above": int((a[:, 2] > STATES_ABOVE[1]).sum()),
+            **{f"{k}_{q}": float(f(a[:, j])) for j, k in ((1, "whole"), (2, "leaf"), (3, "lam"))
+               for q, f in (("median", np.median), ("p90", lambda v: np.percentile(v, 90)),
+                            ("max", np.max))}}
+    print(json.dumps(card | {"row": "settings at states summary", "steps": steps,
+                             "every": STATES_EVERY, "above": STATES_ABOVE, **summary}), flush=True)
+
+
+def step_cell_rows(settings: list[str], rounds: int) -> None:
+    """The ``--step-cells`` rows (module docstring)."""
+    from bench_torch import __main__ as bench_main
+
+    for r in range(rounds):
+        for setting in (settings if r % 2 == 0 else settings[::-1]):
+            print(json.dumps({"step_cells_setting": setting, "round": r}), flush=True)
+            with conv_setting(setting):
+                bench_main.main(["--repeats", "100"], only=list(STEP_CELLS))
+
+
+def trainer_phase_rows(dev, card: dict) -> None:
+    """The ``--trainer-phases`` row (module docstring)."""
+    trainer_ms = cs.phase_trainer(dev, 0)
+    dp = cs.phase_data_parallel(dev, 0)
+    print(json.dumps(card | {"row": "trainer phases", "chip_smoke": os.path.abspath(cs.__file__),
+                             "trainer_ms": trainer_ms, "data_parallel_ms": dp["ms"],
+                             "data_parallel_alone_ms": dp["alone_ms"],
+                             "data_parallel_equal": dp["equal"]}), flush=True)
+
+
 def control_rows(dev, card: dict, name: str, runs: int, size: str = "full") -> None:
     """The ``--control-reads`` rows (module docstring)."""
     from bench_torch import controls
@@ -1161,6 +1507,29 @@ def main() -> None:
                     help="the host-bound cells at 100 and 400 timed units, logs under DIR")
     ap.add_argument("--control-reads", nargs=2, metavar=("NAME", "N"),
                     help="one control of bench_torch/controls.py through its cell's check, N runs")
+    ap.add_argument("--step-recompute", metavar="VARIANTS",
+                    help="the recompute detector under each comma-separated variant of "
+                         f"{','.join(RECOMPUTE_VARIANTS)}")
+    ap.add_argument("--steps", type=int,
+                    help="with --step-recompute, --route-hunt or --settings-at-states, the "
+                         "steps of the trajectory (default: the mode's own)")
+    ap.add_argument("--route-hunt", metavar="SETTINGS",
+                    help="the cell's trajectory under each comma-separated cuDNN setting of "
+                         f"{','.join(HUNT_SETTINGS)}, its gradient against float64 every "
+                         f"{HUNT_EVERY} steps, failing reads taken apart")
+    ap.add_argument("--settings-at-states", metavar="SETTINGS",
+                    help="the cell's trajectory with cuDNN as the cell has it; every "
+                         f"{STATES_EVERY} steps its gradient under each comma-separated setting "
+                         "against float64")
+    ap.add_argument("--conv-passes", metavar="SETTINGS",
+                    help="each convolution's three passes at batches 2 and 8 under each "
+                         "comma-separated cuDNN setting: kernels, device ms, fp32 error")
+    ap.add_argument("--step-cells", metavar="SETTINGS",
+                    help="the two step cells by python3 -m bench_torch under each "
+                         "comma-separated cuDNN setting, in turns")
+    ap.add_argument("--rounds", type=int, default=2, help="with --step-cells, the rounds")
+    ap.add_argument("--trainer-phases", action="store_true",
+                    help="chip_smoke.py's phase_trainer and phase_data_parallel alone: ms/step")
     args = ap.parse_args()
     if args.tiled:  # before this process makes a CUDA context
         arms = args.arms.split(",")
@@ -1172,7 +1541,26 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     cs.phase_build()
     card = dict(zip(("card", "power_limit"), (f.strip() for f in cs.nvidia_smi().split(","))))
-    if args.control_reads:
+    if args.trainer_phases:
+        trainer_phase_rows(dev, card)
+    elif args.route_hunt:
+        route_hunt_rows(card, dev, args.route_hunt.split(","),
+                        args.steps or HUNT_STEPS)
+    elif args.settings_at_states:
+        settings_at_states_rows(card, dev, args.settings_at_states.split(","),
+                                args.steps or STATES_STEPS)
+    elif args.conv_passes:
+        for setting in args.conv_passes.split(","):
+            conv_rows(dev, lambda row: print(json.dumps(card | row), flush=True), None,
+                      TRAIN_SCALING_CONV_BATCHES, setting)
+    elif args.step_cells:
+        step_cell_rows(args.step_cells.split(","), args.rounds)
+    elif args.step_recompute:
+        variants = args.step_recompute.split(",")
+        if set(variants) - set(RECOMPUTE_VARIANTS):
+            ap.error(f"--step-recompute takes {sorted(RECOMPUTE_VARIANTS)}, not {variants}")
+        recompute_rows(card, dev, variants, args.steps or cs.RECOMPUTE_STEPS)
+    elif args.control_reads:
         name, runs = args.control_reads
         control_rows(dev, card, name, int(runs))
     elif args.windows or args.train_check:

@@ -69,13 +69,63 @@ def _by_strips(x, ux, uy, top, bottom, tau, mode, rows):
     return tuple(torch.cat([o[k] for o in outs], dim=1) for k in range(3))
 
 
+def _jax_state() -> str:
+    """Whether the JAX package was imported in this process, and whether a
+    JAX backend has run in it."""
+    bridge = sys.modules.get("jax._src.xla_bridge")
+    backends = sorted(getattr(bridge, "_backends", None) or {})
+    return f"jax imported {'jax' in sys.modules}, backends run {backends}"
+
+
+def _strips_report(args, rows, want, got, evaluations: int = 3) -> str:
+    """For a failed comparison of the strips with the circular stencil
+    (``args`` = ``(x, ux, uy, top, bottom, tau, mode)``): each side
+    evaluated ``evaluations`` times more and how far each moved from its
+    first reading; the elements that differ (how many a plane, the first
+    few by index, the largest difference) and each side against the
+    circular stencil in float64; the alignment mod 64 of every operand's
+    and output's data; torch's thread count and CPU capability; and
+    whether JAX has run in the process."""
+    x, ux, uy, top, bottom, tau, mode = args
+    moved = {"circular": [], "strips": []}
+    for _ in range(evaluations):
+        w2 = _stencil_plain(x, ux, uy, tau, mode)
+        g2 = _by_strips(x, ux, uy, top, bottom, tau, mode, rows)
+        for side, first, again in (("circular", want, w2), ("strips", got, g2)):
+            moved[side].append(max(float((a.double() - b.double()).abs().max())
+                                   for a, b in zip(first, again)))
+    ref = _stencil_plain(*(a.double() for a in (x, ux, uy, tau)), mode)
+    lines = [f"{mode}, tau {'scalar' if tau.ndim == 0 else 'per plane'}; evaluated "
+             f"{evaluations} times again, max |change| a time: {moved}"]
+    for k, (g, w, r) in enumerate(zip(got, want, ref)):
+        diff = g != w
+        if not bool(diff.any()):
+            continue
+        idx = diff.nonzero()[:5].tolist()
+        apart = float((g.double() - w.double()).abs().max())
+        lines.append(
+            f"output {k}: {int(diff.sum())} of {diff.numel()} differ, per plane "
+            f"{diff.reshape(diff.shape[0], -1).sum(dim=1).tolist()}, first at (plane, row, "
+            f"col) {idx}, max |strips - circular| {apart:.3e}; against float64: circular "
+            f"{float((w.double() - r).abs().max()):.3e}, strips "
+            f"{float((g.double() - r).abs().max()):.3e}")
+    tensors = {"x": x, "ux": ux, "uy": uy, "tau": tau, **{f"circular[{k}]": w
+               for k, w in enumerate(want)}, **{f"strips[{k}]": g for k, g in enumerate(got)}}
+    lines.append("data_ptr % 64: " + ", ".join(f"{n} {t.data_ptr() % 64}"
+                                               for n, t in tensors.items()))
+    lines.append(f"torch threads {torch.get_num_threads()}, CPU capability "
+                 f"{torch.backends.cpu.get_cpu_capability()}, {_jax_state()}")
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("dual", DUALS, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("rows", [1, 3, 16])
 @pytest.mark.parametrize("shape", [(3, 37, 101), (2, 1, 64), (2, 24, 128), (6, 8, 32)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_strips_rebuild_the_circular_stencil(rng, shape, rows, dual):
     """Strips of the circular stencil, the wrap rows (h - 1 above row 0, 0
-    below row h - 1) as their edge rows, equal it bit for bit."""
+    below row h - 1) as their edge rows, equal it bit for bit.  A failure
+    carries ``_strips_report``."""
     x, ux, uy = _stack(rng, shape, dual)
     top = x[:, -1:]
     bottom = (x[:, :1], ux[:, :1], uy[:, :1])
@@ -83,8 +133,9 @@ def test_strips_rebuild_the_circular_stencil(rng, shape, rows, dual):
         for mode in MODES:
             want = _stencil_plain(x, ux, uy, tau, mode)
             got = _by_strips(x, ux, uy, top, bottom, tau, mode, rows)
-            for g, w in zip(got, want):
-                assert g.dtype == dual and torch.equal(g, w), (mode, tau.ndim)
+            if not all(g.dtype == dual and torch.equal(g, w) for g, w in zip(got, want)):
+                report = _strips_report((x, ux, uy, top, bottom, tau, mode), rows, want, got)
+                pytest.fail(f"{(mode, tau.ndim)}\n{report}")
 
 
 @pytest.mark.parametrize("dual", DUALS, ids=["fp32", "bf16"])
