@@ -28,7 +28,8 @@ tensor); forward-only too.
 
 The forward and tile kernels are one row march (``csrc/stencil_march.cuh``);
 :func:`march_geometry` cuts a stack into the strips and column chunks its
-blocks own.  Each wrapper counts its kernel launches in
+blocks own.  The backward kernel is the same march mirrored, cut by
+:func:`bwd_march_geometry`.  Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.
 """
 
@@ -46,8 +47,24 @@ from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES, prox_apply, prox_
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 _DUAL_DTYPES = (torch.float32, torch.bfloat16)
 _INT32_MAX = 2**31 - 1
-# Threads per block of the backward kernel; a block covers one row segment.
-_THREADS = 256
+# Columns of one cell of the backward kernel's tau table (a row segment);
+# the widest row its march takes one column a thread and one block a row;
+# its strip height by columns a thread; warps a block at most at four
+# columns a thread; and the blocks a launch should have at least (one for
+# each of the H100's 132 SMs).  Set from `chip_times.py --sweep` on an H100
+# (PERF.md): at the flagship banks' 30 and 120 planes of 112^2 (iso) one
+# column a thread with 4-row strips read 10-16% faster than the best at
+# four columns (1-64 rows; 8-row strips 2-4% faster at 120 planes, 22-26%
+# slower at 30); at 6 x 1080 x 1920 (aniso) four columns in blocks of 8
+# warps with 64-row strips (204 blocks) read fastest of all (4-16-row
+# strips 1-10% slower, 2-row strips 10-25%, and 47-row strips, a launch a
+# few blocks past one wave, 13-28%), and one column a thread 8-28% slower
+# (a block's edge column is evaluated twice, and its barrier waits).
+_BWD_SEGMENT = 256
+_BWD_NARROW = 1024
+_BWD_ROWS = {1: 4, 4: 64}
+_BWD_MAX_WARPS = 8
+_BWD_MIN_BLOCKS = 132
 # The row march (csrc/stencil_march.cuh): columns a thread owns, warps a
 # block at most, and a strip's rows.  Set from a sweep of both kernels on an
 # H100 (PERF.md, `chip_times.py --sweep`): blocks of at most 3 warps, and
@@ -98,6 +115,53 @@ def march_geometry(n: int, h: int, w: int, rows: int = _MARCH_ROWS) -> MarchGeom
     strips = min(-(-h // rows), _GRID_Y_MAX // n)
     rows = -(-h // strips)
     return MarchGeometry(rows, -(-h // rows), chunks, 32 * warps)
+
+
+class BwdMarchGeometry(NamedTuple):
+    """How the backward kernel's row march cuts an ``(n, h, w)`` stack:
+    strips of ``rows`` rows (``strips`` to a plane, the last one shorter
+    where ``rows`` does not divide ``h``); ``cols`` columns a thread (1 or
+    4); rows cut into chunks of ``chunk_warps`` warps, each one 256-column
+    segment of the tau table (or the whole row where it is narrower),
+    ``threads // (32 * chunk_warps)`` chunks a block and ``col_blocks``
+    blocks a row.  The grid is ``(n * strips, col_blocks)``."""
+
+    rows: int
+    strips: int
+    col_blocks: int
+    threads: int
+    chunk_warps: int
+    cols: int
+
+
+def bwd_march_geometry(n: int, h: int, w: int, rows: int | None = None,
+                       max_warps: int | None = None, cols: int | None = None
+                       ) -> BwdMarchGeometry:
+    """The backward row march's strips and blocks for an ``(n, h, w)`` stack.
+
+    Rows of at most ``_BWD_NARROW`` columns take one column a thread and one
+    block a row (its warps trade their edge columns through shared memory),
+    wider rows four columns a thread in blocks of at most
+    ``_BWD_MAX_WARPS`` warps; ``cols`` and ``max_warps`` override that.  A
+    block holds as many chunks as divide a row's segments evenly.  Strips
+    are ``rows`` rows (``_BWD_ROWS`` by the columns a thread) and never
+    cross a plane, shorter where the stack would otherwise give fewer than
+    ``_BWD_MIN_BLOCKS`` blocks.  The grid's first axis holds planes x
+    strips, so every stack the operand checks let through fits.
+    """
+    cols = cols or (1 if w <= _BWD_NARROW else _MARCH_VEC)
+    segments = -(-w // _BWD_SEGMENT)
+    chunk_warps = min(_BWD_SEGMENT // (32 * cols), -(-w // (32 * cols)))
+    max_warps = max_warps or (_BWD_NARROW // 32 if cols == 1 else _BWD_MAX_WARPS)
+    most = max(1, max_warps // chunk_warps)
+    chunks = max(d for d in range(1, most + 1) if segments % d == 0)
+    col_blocks = segments // chunks
+    if col_blocks > _GRID_Y_MAX:
+        raise ValueError(f"a row of {w} columns exceeds the backward march's grid")
+    rows = max(1, min(rows or _BWD_ROWS[cols], h, n * h * col_blocks // _BWD_MIN_BLOCKS))
+    rows = -(-h // -(-h // rows))  # the same strips, as even as they go
+    return BwdMarchGeometry(rows, -(-h // rows), col_blocks, 32 * chunk_warps * chunks,
+                            chunk_warps, cols)
 
 
 def _vec_ok(w: int, *arrays: torch.Tensor, halo_stride: int = 0) -> bool:
@@ -160,6 +224,30 @@ def _bwd_plain(x, ux, uy, tau, gq, gux, guy, mode):
     return xbar, vbx.to(ux.dtype), vby.to(ux.dtype), torch.sum(taub, dim=(-2, -1))
 
 
+def _taub_partials_plain(terms: torch.Tensor) -> torch.Tensor:
+    """The backward kernel's table of tau-cotangent partial sums, in its order.
+
+    ``terms`` is the ``(N, H, W)`` fp32 map of per-pixel terms (``prox_vjp``'s
+    third output).  Returns the ``(N, H * ceil(W / 256))`` table whose cell
+    ``[p, r * ceil(W / 256) + k]`` sums row ``r``'s columns ``256 k`` ..
+    ``256 k + 255`` (a term of +0 beyond ``W``): within each 32-column group
+    by halving (``a[j] + a[j + l]`` for ``l`` = 16, 8, 4, 2, 1), then over the
+    8 group sums padded to 32 with +0 in the same way.  The +0 that the
+    group level's first two halvings add turns a sum of -0 into +0, as in
+    the kernel.  ``torch.sum(table, dim=1)`` is the kernel path's ``taub``.
+    """
+    n, h, w = terms.shape
+    segments = -(-w // _BWD_SEGMENT)
+    a = torch.nn.functional.pad(terms, (0, segments * _BWD_SEGMENT - w))
+    a = a.reshape(n, h, segments, _BWD_SEGMENT // 32, 32)
+    for half in (16, 8, 4, 2, 1):
+        a = a[..., :half] + a[..., half:2 * half]
+    a = torch.nn.functional.pad(a[..., 0], (0, 32 - _BWD_SEGMENT // 32))
+    for half in (16, 8, 4, 2, 1):
+        a = a[..., :half] + a[..., half:2 * half]
+    return a[..., 0].reshape(n, h * segments)
+
+
 def _tau_plane_vector(tau, n: int, dtype, device) -> torch.Tensor | None:
     """Canonicalize tau to 0-d or ``(N,)``; None if not representable."""
     tau = torch.as_tensor(tau, dtype=dtype, device=device)
@@ -202,9 +290,16 @@ def _kernel_fn():
     return _load_kernel("stencil_fwd", "admm_stencil_fwd", 7, (*_STENCIL_ARGS, *_MARCH_ARGS))
 
 
+# The backward march's arguments after the stencil's: tau_stride, rows,
+# strips, col_blocks, threads, chunk_warps, cols, vec.
+_BWD_MARCH_ARGS = (ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int)
+
+
 @functools.cache
 def _bwd_kernel_fn():
-    return _load_kernel("stencil_bwd", "admm_stencil_bwd", 11)
+    return _load_kernel("stencil_bwd", "admm_stencil_bwd", 11,
+                        (*_STENCIL_ARGS, *_BWD_MARCH_ARGS))
 
 
 @functools.cache
@@ -273,13 +368,15 @@ def _stencil_cuda(x, ux, uy, tau, mode):
     return q, ux_new, uy_new
 
 
-def _stencil_bwd_cuda(x, ux, uy, tau, gq, gux, guy, mode, need_x=True, need_u=True,
-                      need_tau=True):
+def _stencil_bwd_table(x, ux, uy, tau, gq, gux, guy, mode, need_x=True, need_u=True,
+                       need_tau=True):
     """Check the operands and launch ``csrc/stencil_bwd.cu`` on the current
-    stream, counted in ``fused_admm_stencil_bwd.launches``.  Outputs nobody
-    needs come back as None, are not allocated and not written (the kernel
-    skips a null pointer).  ``taub`` comes back as the ``(N,)`` sum of the
-    kernel's per-block partials, in a fixed order."""
+    stream, cut by :func:`bwd_march_geometry` and counted in
+    ``fused_admm_stencil_bwd.launches``.  Returns ``(xbar, uxbar, uybar,
+    partials)``: outputs nobody needs come back as None, are not allocated
+    and not written (the kernel skips a null pointer); ``partials`` is the
+    kernel's ``(N, H * ceil(W / 256))`` table of tau-cotangent partial sums,
+    whose order :func:`_taub_partials_plain` gives."""
     _check_cuda_operands(x, ux)
     n, h, w = x.shape
     if not (gq.dtype == gux.dtype == guy.dtype == ux.dtype):
@@ -288,21 +385,31 @@ def _stencil_bwd_cuda(x, ux, uy, tau, gq, gux, guy, mode, need_x=True, need_u=Tr
             f"duals' {ux.dtype}"
         )
     x, ux, uy, gq, gux, guy = (a.contiguous() for a in (x, ux, uy, gq, gux, guy))
-    tau_n = tau.to(torch.float32).expand(n).contiguous()
+    tau, tau_stride = _tau_operand(tau)
     xbar = torch.empty_like(x) if need_x else None
     uxbar = torch.empty_like(ux) if need_u else None
     uybar = torch.empty_like(ux) if need_u else None
-    col_blocks = (w + _THREADS - 1) // _THREADS
     partials = (
-        torch.empty((n, h * col_blocks), dtype=torch.float32, device=x.device)
+        torch.empty((n, h * -(-w // _BWD_SEGMENT)), dtype=torch.float32, device=x.device)
         if need_tau else None
     )
+    outputs = [a for a in (xbar, uxbar, uybar) if a is not None]
     _launch(
         _bwd_kernel_fn, "stencil_bwd", x.device,
-        *(_ptr(a) for a in (x, ux, uy, tau_n, gq, gux, guy, xbar, uxbar, uybar, partials)),
-        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16),
+        *(_ptr(a) for a in (x, ux, uy, tau, gq, gux, guy, xbar, uxbar, uybar, partials)),
+        n, h, w, _MODE_ID[mode], int(ux.dtype == torch.bfloat16), tau_stride,
+        *bwd_march_geometry(n, h, w), int(_vec_ok(w, x, ux, uy, gq, gux, guy, *outputs)),
     )
     fused_admm_stencil_bwd.launches += 1
+    return xbar, uxbar, uybar, partials
+
+
+def _stencil_bwd_cuda(x, ux, uy, tau, gq, gux, guy, mode, need_x=True, need_u=True,
+                      need_tau=True):
+    """:func:`_stencil_bwd_table`, with ``taub`` as the ``(N,)`` sum of its
+    table (None where nobody needs it)."""
+    xbar, uxbar, uybar, partials = _stencil_bwd_table(x, ux, uy, tau, gq, gux, guy, mode,
+                                                      need_x, need_u, need_tau)
     taub = None if partials is None else torch.sum(partials, dim=1)
     return xbar, uxbar, uybar, taub
 

@@ -219,15 +219,17 @@ INFERENCE_SHAPES = [(12, 512, 512), (9, 256, 256)]
 KERNEL_SHAPES = [(2, 24, 128), (1, 256, 2048), (1, 384, 2048), (12, 1080, 1920),
                  *INFERENCE_SHAPES, *BWD_SHAPES, *MULTI_SOLVE_SHAPES, (2, 1, 64),
                  (12, 2160, 3840)]
-# The forward and tile kernels' stacks held again with misaligned storage
-# (the row march's element-wise accesses): a width not a multiple of 4,
-# aligned widths, a one-row plane, a 4K stack with 64-bit offsets.
-MISALIGNED_SHAPES = [(3, 37, 101), (2, 24, 128), (6, 8, 32), (2, 1, 64), (3, 2160, 3840)]
+# The three row-march kernels' stacks (forward, tile, backward) held again
+# with misaligned storage (the march's element-wise accesses): a width not a
+# multiple of 4, aligned widths, a one-row plane, a 4K stack with 64-bit
+# offsets, the batch-2 flagship step's bank (one warp a row in the backward).
+MISALIGNED_SHAPES = [(3, 37, 101), (2, 24, 128), (6, 8, 32), (2, 1, 64), (3, 2160, 3840),
+                     (30, 112, 112)]
 KERNEL_SOURCES = ("stencil_fwd", "stencil_bwd", "prox_dual", "stencil_composite",
                   "stencil_halo")
-# The two kernels built on the row march (csrc/stencil_march.cuh): their
+# The three kernels built on the row march (csrc/stencil_march.cuh): their
 # ptxas report is printed in full.
-MARCH_SOURCES = ("stencil_fwd", "stencil_halo")
+MARCH_SOURCES = ("stencil_fwd", "stencil_halo", "stencil_bwd")
 CSRC = "admm_deconv_tpu_torch/csrc"
 TPU_KERNELS = "admm_deconv_tpu/ops/pallas/stencil_kernels.py"
 TPU_PROX_KERNELS = "admm_deconv_tpu/ops/pallas/prox_kernels.py"
@@ -285,6 +287,17 @@ ANDERSON_CONTROL_REPEATS, TRAIN_B8_CONTROL_REPEATS = 2, 10
 # bench.py's flagship step and bench_suite.py's 1080p TV-layer step.
 FLAGSHIP_SHAPE, FLAGSHIP_REPEATS, FLAGSHIP_LAUNCHES = (2, 112, 112, 3), 8, 49
 TV_SHAPE, TV_ITERS, TV_REPEATS = (2, 1080, 1920, 3), 20, 4
+# The flagship steps' denoiser-bank stacks (5 branches x batch x RGB at
+# 112^2: the batch-2 and batch-8 cells), where Q2-1 and Q2-2 are timed in
+# iso mode with a per-plane tau; and the fp32 operations a pixel of each in
+# iso mode (D, the prox or its VJP with its sqrt and divisions, D^T).
+FLAGSHIP_STACKS = [(30, 112, 112), (120, 112, 112)]
+FWD_ISO_OPS, BWD_ISO_OPS = 23, 45
+# Cuts of the backward march besides its default (``bwd_march_geometry``'s
+# keyword arguments): each is held at every BWD_SHAPES stack too.
+BWD_GEOMETRIES = ({"cols": 1, "max_warps": 8, "rows": 3}, {"cols": 1, "rows": 1},
+                  {"cols": 4, "max_warps": 2, "rows": 4}, {"cols": 4, "max_warps": 8, "rows": 1},
+                  {"cols": 4, "rows": 16})
 TRAIN_CFG = "configs/train_cfg.json"
 TRAINER_BATCHES = (4, 2)  # train, eval batches of the production-trainer epoch
 FIXTURES = "tests/fixtures"  # china, flower, hopper: 256^2 RGB PNGs
@@ -446,13 +459,15 @@ def ptxas_entries(log: str) -> list[str]:
     lines = []
     for block in log.split("Compiling entry function")[1:]:
         name = re.match(r"\s*'([^']+)'", block)
-        args = re.search(r"ILi(\d)E(f|13__nv_bfloat16)E", name.group(1)) if name else None
+        args = (re.search(r"ILi(\d)E(f|13__nv_bfloat16)(?:Li(\d)E)?E", name.group(1))
+                if name else None)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
         smem = re.search(r"(\d+) bytes smem", block)
         mode = "?" if args is None else ("aniso", "iso", "hard", "gauss")[int(args.group(1))]
         dual = "?" if args is None else ("fp32" if args.group(2) == "f" else "bf16")
-        lines.append(f"<{mode}, {dual}>: {regs.group(1) if regs else '?'} registers, spill "
+        cols = "" if args is None or args.group(3) is None else f", {args.group(3)} cols"
+        lines.append(f"<{mode}, {dual}{cols}>: {regs.group(1) if regs else '?'} registers, spill "
                      f"stores/loads {spill.group(1) if spill else '?'}/"
                      f"{spill.group(2) if spill else '?'} B, shared memory "
                      f"{smem.group(1) if smem else 0} B")
@@ -523,8 +538,9 @@ def phase_kernels(dev, gen) -> dict:
     return worst
 
 
-def _taub_abs_sum(x, ux, uy, tau, gq, gux, guy, mode):
-    """Per-plane sum of |tau-cotangent terms|: the scale of the tau check."""
+def _taub_terms(x, ux, uy, tau, gq, gux, guy, mode):
+    """The per-pixel tau-cotangent terms, as ``_bwd_plain`` computes them
+    before its sum: what the kernel's table of partial sums adds up."""
     from admm_deconv_tpu_torch.ops.diff import grad2d
     from admm_deconv_tpu_torch.ops.kernels.prox_math import prox_vjp
 
@@ -533,23 +549,34 @@ def _taub_abs_sum(x, ux, uy, tau, gq, gux, guy, mode):
     wbx, wby = grad2d(gq.float())
     _, _, terms = prox_vjp(mode, dxx + ux.float(), dxy + uy.float(), t,
                            2.0 * wbx - gux.float(), 2.0 * wby - guy.float())
-    return terms.abs().sum(dim=(-2, -1))
+    return terms
+
+
+def _taub_abs_sum(*args):
+    """Per-plane sum of |tau-cotangent terms|: the scale of the tau check."""
+    return _taub_terms(*args).abs().sum(dim=(-2, -1))
 
 
 def phase_bwd_kernels(dev, gen) -> dict:
-    """The backward kernel against ``_bwd_plain`` on the same CUDA inputs,
-    then the autograd Function against autograd through ``_stencil_plain``."""
+    """The backward kernel against ``_bwd_plain`` on the same CUDA inputs, bit
+    for bit, and its table of tau partial sums against
+    ``_taub_partials_plain`` (the emulation of its fixed order), bit for bit;
+    then
+    the autograd Function against autograd through ``_stencil_plain``."""
     from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES
     from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
         _bwd_plain,
-        _stencil_bwd_cuda,
+        _stencil_bwd_table,
         _stencil_plain,
+        _taub_partials_plain,
         fused_admm_stencil,
         fused_admm_stencil_bwd,
     )
 
-    def compare(got, want, scale, dual, what) -> float:
-        """Each output the kernel wrote against the plain one; None where skipped."""
+    def compare(got, args, dual, what) -> float:
+        """Each output the kernel wrote against the plain one, and its table
+        against the emulation of its order; None where skipped."""
+        want = _bwd_plain(*args)
         err = 0.0
         for k, (g, w) in enumerate(zip(got[:3], want[:3])):
             if g is None:
@@ -558,20 +585,17 @@ def phase_bwd_kernels(dev, gen) -> dict:
             check(g.dtype == want_dtype and g.shape == w.shape, f"bwd {what} output {k} layout")
             check(bool(torch.isfinite(g).all()), f"bwd {what} non-finite")
             err = max(err, float((g.float() - w.float()).abs().max()))
-            if want_dtype == torch.float32:
-                ok = fp32_close(g, w)
-            else:
-                ok = bf16_ulp_ok(g, w)
-            check(ok, f"bwd vs plain {what} out {k}: {err}")
+            check(torch.equal(g, w), f"bwd vs plain {what} out {k}: {err}")
         if got[3] is not None:
-            check(got[3].shape == want[3].shape, f"taub shape {tuple(got[3].shape)}")
-            terr = (got[3] - want[3]).abs()
-            check(bool((terr <= 1e-5 * scale).all()), f"taub {what}: {float(terr.max())}")
+            table = _taub_partials_plain(_taub_terms(*args))
+            check(got[3].shape == table.shape, f"taub table shape {tuple(got[3].shape)}")
+            check(torch.equal(got[3], table), f"taub table {what}: "
+                  f"{float((got[3] - table).abs().max())} from the emulated order")
         return err
 
-    print("[bwd] tolerance: xbar and fp32 ubar |kernel-plain| <= 1e-5 + 1e-5*|plain|; "
-          "bf16 ubar equal or one bf16 ulp apart; taub |kernel-plain| <= 1e-5 * "
-          "sum|terms| per plane (the sums run in another order)")
+    print("[bwd] tolerance: xbar, uxbar, uybar equal to the plain twin bit for bit; the "
+          "tau table equal to _taub_partials_plain bit for bit; taub (the table's sum) "
+          "|kernel-plain| <= 1e-5 * sum|terms| per plane (the plain sum's order differs)")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape in BWD_SHAPES:
         n = shape[0]
@@ -587,34 +611,73 @@ def phase_bwd_kernels(dev, gen) -> dict:
                                       ("plane", tau_v)):
                     args = (x, ux, uy, tau, gq, gux, guy, mode)
                     what = f"{shape} {mode} {dual} {tau_kind}"
+                    table = _stencil_bwd_table(*args)
                     got = fused_admm_stencil_bwd(*args)
-                    want = _bwd_plain(*args)
-                    scale = _taub_abs_sum(*args)
                     torch.cuda.synchronize()
                     check(all(g is not None for g in got), f"bwd {what}: an output is missing")
                     check(got[3].shape == (n,), f"taub shape {tuple(got[3].shape)}")
-                    err = compare(got, want, scale, dual, what)
+                    err = compare(table, args, dual, what)
+                    for g, t in zip(got[:3], table[:3]):
+                        check(torch.equal(g, t), f"bwd {what}: two launches differ")
+                    check(torch.equal(got[3], torch.sum(table[3], dim=1)),
+                          f"bwd {what}: taub is not the table's sum")
                     worst[dual] = max(worst[dual], err)
-                    terr = (got[3] - want[3]).abs()
+                    scale = _taub_abs_sum(*args)
+                    terr = (got[3] - _bwd_plain(*args)[3]).abs()
+                    check(bool((terr <= 1e-5 * scale).all()), f"taub {what}: {float(terr.max())}")
                     print(f"[bwd] {str(shape):16s} {mode:5s} {str(dual)[6:]:8s} "
-                          f"tau={tau_kind:6s} max|kernel-plain|={err:.3e} "
+                          f"tau={tau_kind:6s} max|kernel-plain|={err:.3e} table equal, "
                           f"taub rel={float((terr / scale.clamp_min(1e-30)).max()):.2e}")
             # The kernel's skip branches (null output pointers), as the
             # autograd Function takes them when some input needs no gradient.
             args = (x, ux, uy, tau_v, gq, gux, guy, "iso")
-            want = _bwd_plain(*args)
-            scale = _taub_abs_sum(*args)
             for need in ((False, True, True), (True, False, False), (False, False, True)):
-                got = _stencil_bwd_cuda(*args, *need)
+                got = _stencil_bwd_table(*args, *need)
                 torch.cuda.synchronize()
-                check([g is not None for g in (got[0], got[1], got[2], got[3])]
-                      == [need[0], need[1], need[1], need[2]],
+                check([g is not None for g in got] == [need[0], need[1], need[1], need[2]],
                       f"bwd {shape} skip {need}: outputs {[g is None for g in got]}")
-                worst[dual] = max(worst[dual], compare(got, want, scale, dual,
+                worst[dual] = max(worst[dual], compare(got, args, dual,
                                                        f"{shape} iso {dual} skip {need}"))
             print(f"[bwd] {str(shape):16s} iso   {str(dual)[6:]:8s} need (x, u, tau) in "
                   f"{{(F,T,T), (T,F,F), (F,F,T)}}: written outputs equal the plain ones, "
                   f"skipped ones None")
+    # The other cuts of the march (columns a thread, warps a block, strips),
+    # which the default geometry does not take at these stacks: iso, a tau a
+    # plane.
+    from admm_deconv_tpu_torch.ops.kernels import stencil_kernels as sk
+
+    chosen = sk.bwd_march_geometry
+    for shape in BWD_SHAPES + [(2, 24, 300)]:
+        x = torch.randn(shape, generator=gen, device=dev)
+        arrays = [torch.randn(shape, generator=gen, device=dev) for _ in range(5)]
+        tau_v = torch.empty(shape[0], device=dev).uniform_(0.1, 0.5, generator=gen)
+        for kw in BWD_GEOMETRIES:
+            geo = chosen(*shape, **kw)
+            if geo == chosen(*shape):
+                continue
+            sk.bwd_march_geometry = lambda *_, geo=geo: geo
+            try:
+                for dual in (torch.float32, torch.bfloat16):
+                    ux, uy, gq, gux, guy = (a.to(dual) for a in arrays)
+                    args = (x, ux, uy, tau_v, gq, gux, guy, "iso")
+                    compare(_stencil_bwd_table(*args), args, dual, f"{shape} iso {geo}")
+            finally:
+                sk.bwd_march_geometry = chosen
+        print(f"[bwd] {str(shape):16s} iso, fp32 and bf16, under the cuts {BWD_GEOMETRIES}: "
+              f"equal to the plain twin, table equal")
+    # Rows the 16-byte accesses do not fit: storage one element off an
+    # aligned address takes the element-wise accesses of the same march.
+    for shape in MISALIGNED_SHAPES:
+        x = misaligned(torch.randn(shape, generator=gen, device=dev))
+        arrays = [torch.randn(shape, generator=gen, device=dev) for _ in range(5)]
+        tau_v = torch.empty(shape[0], device=dev).uniform_(0.1, 0.5, generator=gen)
+        for dual in (torch.float32, torch.bfloat16):
+            ux, uy, gq, gux, guy = (misaligned(a.to(dual)) for a in arrays)
+            for mode in MODES:
+                args = (x, ux, uy, tau_v, gq, gux, guy, mode)
+                compare(_stencil_bwd_table(*args), args, dual, f"{shape} {mode} misaligned")
+        print(f"[bwd] {str(shape):16s} misaligned storage, every mode, fp32 and bf16: equal "
+              f"to the plain twin, table equal")
 
     # The Function's gradient against autograd through the plain forward,
     # at inputs whose v sits away from the prox thresholds (|v| or |v|_2 in
@@ -1937,6 +2000,53 @@ def phase_kernel_times(dev, gen) -> dict:
                   f"{t['bound_ms']:.4f} ms HBM floor), plain {p1:.4f}/{p2:.4f} ms per call")
     for dual, t in phase_stencil_times(dev, gen, BENCH_STACK).items():
         times[f"fwd_{dual} {BENCH_STACK}"] = t
+    return times | phase_flagship_stack_times(dev, gen)
+
+
+def phase_flagship_stack_times(dev, gen) -> dict:
+    """Q2-1 and Q2-2 alone at the flagship steps' denoiser-bank stacks
+    (``FLAGSHIP_STACKS``), as the bank launches them: iso mode, a per-plane
+    tau, fp32 and bf16 duals.  Keys ``fwd_fp32 (30, 112, 112) iso``,
+    ``bwd_bf16 ...``."""
+    from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
+        _bwd_plain,
+        _stencil_plain,
+        fused_admm_stencil,
+        fused_admm_stencil_bwd,
+        fused_admm_stencil_mixed,
+    )
+
+    times = {}
+    for shape in FLAGSHIP_STACKS:
+        x = torch.rand(shape, generator=gen, device=dev)
+        tau = torch.empty(shape[0], device=dev).uniform_(0.01, 0.1, generator=gen)
+        for key, dual in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            ux, uy = ((0.05 * torch.randn(shape, generator=gen, device=dev)).to(dual)
+                      for _ in range(2))
+            gq, gux, guy = (torch.randn(shape, generator=gen, device=dev).to(dual)
+                            for _ in range(3))
+            fwd = fused_admm_stencil if dual == torch.float32 else fused_admm_stencil_mixed
+            narrow = dual == torch.bfloat16
+            # (kernel, plain, bytes per pixel, operations per pixel)
+            pairs = {
+                "fwd": (lambda: fwd(x, ux, uy, tau, mode="iso"),
+                        lambda: _stencil_plain(x, ux, uy, tau, "iso"), 14 if narrow else 24,
+                        FWD_ISO_OPS),
+                "bwd": (lambda: fused_admm_stencil_bwd(x, ux, uy, tau, gq, gux, guy, "iso"),
+                        lambda: _bwd_plain(x, ux, uy, tau, gq, gux, guy, "iso"),
+                        22 if narrow else 36, BWD_ISO_OPS),
+            }
+            for kind, (kernel, plain, bytes_px, flops_px) in pairs.items():
+                p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kernel, kernel, plain))
+                t = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "device_ms": device_ms(kernel, 20), "launches_a_step": FLAGSHIP_LAUNCHES,
+                     **bound(shape, bytes_px, flops_px)}
+                times[f"{kind}_{key} {shape} iso"] = t
+                print(f"[times] {shape} {kind}_{key}, iso, tau per plane: kernel {k1:.4f}/"
+                      f"{k2:.4f} ms per call, device {t['device_ms']:.4f} ms "
+                      f"({t['bound_ms'] / t['device_ms']:.1%} of the {t['bound_ms']:.4f} ms HBM "
+                      f"floor, {bytes_px} B/px), plain {p1:.4f}/{p2:.4f} ms per call; "
+                      f"{FLAGSHIP_LAUNCHES} launches a flagship step")
     return times
 
 
@@ -3495,6 +3605,13 @@ def main() -> None:
         str(BENCH_STACK): times[f"fwd_fp32 {BENCH_STACK}"]}
     by_kernel["fused_admm_stencil_mixed"]["by_stack"] = {
         str(BENCH_STACK): times[f"fwd_bf16 {BENCH_STACK}"], str(FRAME_STACK): frame_times["bf16"]}
+    # Q2-1 and Q2-2 at the flagship steps' bank stacks, iso with a tau a
+    # plane, as the steps launch them (fp32 and bf16 duals).
+    for name, kind in (("fused_admm_stencil", "fwd_fp32"), ("fused_admm_stencil_mixed", "fwd_bf16"),
+                       ("stencil_bwd", "bwd_fp32"), ("stencil_bwd", "bwd_bf16")):
+        stacks = by_kernel[name].setdefault("by_stack", {})
+        for shape in FLAGSHIP_STACKS:
+            stacks[f"{shape} iso {kind[4:]}"] = times[f"{kind} {shape} iso"]
     # Q2-4 at the four-card cell's tile, and on the device alone at its other
     # timed stacks (fp32, bf16).
     by_kernel["fused_admm_stencil_halo"]["by_stack"] = {

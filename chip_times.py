@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_times.py            # kernel times, the 1080p solve, tiled T = 1
-    python3 chip_times.py --sweep    # the row march's geometry: rows x warps
+    python3 chip_times.py --sweep    # the row marches' geometry: rows x warps
     python3 chip_times.py --policy   # solve_auto's policy fields, A/B on the card
     python3 chip_times.py --frame    # the 4K frame: its check's readings, fp32 beside bf16
     python3 chip_times.py --ttq      # the solve to tolerance: its check's readings
@@ -13,7 +13,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_times.py --anderson  # the 1080p Anderson solve: its check's readings
     python3 chip_times.py --train-scaling  # the flagship step at batches 2, 4 and 8
     python3 chip_times.py --tiled [--arms alone,after,controls]  # the four-card cell
-    python3 chip_times.py --train-check N  # the flagship step cell's check, N runs
+    python3 chip_times.py --train-check N  # both flagship step cells' checks, N runs each
     python3 chip_times.py --windows DIR  # host-bound cells at 100 and 400 timed units
     python3 chip_times.py --control-reads NAME N  # one control through its cell's check, N runs
     python3 chip_times.py --step-recompute VARIANTS [--steps N]  # the recompute detector
@@ -34,9 +34,10 @@ device time by kernel in one profiled solve) and the tiled solver at T = 1
 (it/s, ``chip_smoke.profile_tiled``), fp32 and bf16 state.  It imports the
 port and ``chip_smoke`` from the current directory, so two trees compare by
 running it from each root in turns on one card (parent, change, change,
-parent), e.g. from ``git archive`` of each.  ``--sweep`` times the forward
-and tile kernels at every strip height and block width
-``march_geometry`` could choose, against the one it does choose.
+parent), e.g. from ``git archive`` of each.  ``--sweep`` times the backward
+kernel at every strip height and block width ``bwd_march_geometry`` could
+choose, then the forward and tile kernels at every one ``march_geometry``
+could choose, each against the one it does choose.
 
 ``--policy`` measures the fields of ``admm_deconv_tpu_torch/ops/policy.py``
 that ``solve_auto`` reads, printing one JSON line a row, each naming the
@@ -146,10 +147,10 @@ units each (each control's check reads only the last unit).  The cell's
 lines are printed as the benchmark prints them, each arm's headed by a
 ``{"tiled_arm": ...}`` line.
 
-``--train-check N`` runs the ``flagship_train_step`` cell by
-``cells.run_train`` N times in one process, as the command runs it (its
-seed, 100 timed steps, its check of the last one, its traced steps), and
-prints a line a run: the check's readings against its limits; the max-pool
+``--train-check N`` runs each of ``STEP_CELLS`` (the batch-2 and batch-8
+flagship step cells) by ``cells.run_train`` N times in one process, as the
+command runs it (its seed, 100 timed steps, its check of the last one, its
+traced steps), and prints a line a run: the check's readings against its limits; the max-pool
 windows and clamped elements whose route the card's forward at the last
 step's parameters and input takes apart from float64's; the step's own
 gradient against float64 made to take the card's routes (what is left is
@@ -222,6 +223,13 @@ import chip_smoke as cs  # noqa: E402
 
 SWEEP_SHAPES = [(12, 1080, 1920), (6, 1080, 1920), (12, 270, 1920), (3, 540, 3840)]
 SWEEP_ROWS = (1, 2, 4, 8, 16, 32, 64)
+# The backward kernel's sweep: the TV-layer step's stack (aniso) and the
+# flagship steps' bank stacks (iso, a per-plane tau), and the most warps a
+# block takes (a block holds whole 256-column chunks of two warps; one warp
+# at 112 columns).
+BWD_SWEEP_SHAPES = {(6, 1080, 1920): "aniso", (120, 112, 112): "iso", (30, 112, 112): "iso",
+                    (30, 256, 256): "iso"}
+BWD_SWEEP_WARPS = {1: (8, 16, 32), 4: (2, 4, 8)}
 # --policy: A/B pairs a pairing, rounds of the check_every rotation, and the
 # candidates (divisors of solve_auto's default max_iters=400, so that
 # solve_auto keeps each).
@@ -387,6 +395,48 @@ def sweep(dev, gen) -> None:
                           f"{rows:2d} rows, {geo.chunks * n * strips:6d} blocks: fwd "
                           f"{f_ms:.4f} ms ({floor / f_ms:.1%}), halo {h_ms:.4f} ms "
                           f"({floor / h_ms:.1%})")
+
+
+def bwd_sweep(dev, gen) -> None:
+    """The backward kernel at 1 and 4 columns a thread, every strip height
+    of ``SWEEP_ROWS`` and every block of whole chunks up to
+    ``BWD_SWEEP_WARPS`` warps, by ``device_ms``, at ``BWD_SWEEP_SHAPES``."""
+    from admm_deconv_tpu_torch.ops.kernels import stencil_kernels as sk
+
+    chosen = sk.bwd_march_geometry
+    for shape, mode in BWD_SWEEP_SHAPES.items():
+        n, h, w = shape
+        x = torch.rand(shape, generator=gen, device=dev)
+        tau = (torch.tensor(cs.LAM / cs.RHO, device=dev) if mode == "aniso" else
+               torch.empty(n, device=dev).uniform_(0.01, 0.1, generator=gen))
+        for dual in (torch.float32, torch.bfloat16):
+            ux, uy = ((0.05 * torch.randn(shape, generator=gen, device=dev)).to(dual)
+                      for _ in range(2))
+            gq, gux, guy = (torch.randn(shape, generator=gen, device=dev).to(dual)
+                            for _ in range(3))
+            floor = cs.bound(shape, 22 if dual == torch.bfloat16 else 36,
+                             cs.BWD_ISO_OPS if mode == "iso" else 40)["bound_ms"]
+            print(f"[sweep] bwd {shape} {mode} {str(dual)[6:]}: chosen {chosen(n, h, w)}; "
+                  f"floor {floor:.4f} ms")
+            seen = set()
+            for cols, warps, rows in ((c, m, r) for c, ms in BWD_SWEEP_WARPS.items()
+                                      for m in ms for r in SWEEP_ROWS):
+                geo = chosen(n, h, w, max_warps=warps, cols=cols)._replace(
+                    rows=rows, strips=-(-h // rows))
+                if rows > h or geo in seen:
+                    continue
+                seen.add(geo)
+                sk.bwd_march_geometry = lambda *_, geo=geo: geo
+                try:
+                    ms = cs.device_ms(
+                        lambda: sk.fused_admm_stencil_bwd(x, ux, uy, tau, gq, gux, guy, mode),
+                        20)
+                finally:
+                    sk.bwd_march_geometry = chosen
+                print(f"[sweep] bwd {shape} {str(dual)[6:]:8s} {geo.cols} cols, "
+                      f"{geo.threads:4d} threads, {rows:2d} rows, "
+                      f"{geo.col_blocks * n * geo.strips:6d} blocks: {ms:.4f} ms "
+                      f"({floor / ms:.1%})")
 
 
 def _seconds(solve, v):
@@ -1101,7 +1151,7 @@ def train_check_rows(dev, card: dict, runs: int) -> None:
 
     check_step = cells.check_step
     failed = []
-    for k in range(1, runs + 1):
+    for k, cell in ((k, cell) for cell in STEP_CELLS for k in range(1, runs + 1)):
         seen = {}
 
         def captured(before, after, grads, loss, x, t):
@@ -1109,9 +1159,8 @@ def train_check_rows(dev, card: dict, runs: int) -> None:
             return check_step(before, after, grads, loss, x, t)
 
         with cs._patched((cells, "check_step", captured)):
-            run = cells.run_train(dev, cells.DEFAULT_SEEDS[cells.FLAGSHIP],
-                                  TRAIN_SCALING_REPEATS, TRAIN_SCALING_SIZE,
-                                  classify=by_layer_and_name)
+            run = cells.run_train(dev, cells.DEFAULT_SEEDS[cell], TRAIN_SCALING_REPEATS,
+                                  TRAIN_SCALING_SIZE, cell=cell, classify=by_layer_and_name)
         check = run.checks["last timed step"]
         params, x, t = seen["params"], seen["x"], seen["t"]
         routes64 = []
@@ -1121,8 +1170,8 @@ def train_check_rows(dev, card: dict, runs: int) -> None:
         kernels = sorted({key.split(" | ", 1)[1] for key in run.breakdown.get("layers_ms") or {}
                           if key.startswith("cudnn_ms | ")})
         if not check["ok"]:
-            failed.append(k)
-        emit({"row": "train check", "run": k, "check_ok": check["ok"],
+            failed.append((cell, k))
+        emit({"row": "train check", "cell": cell, "run": k, "check_ok": check["ok"],
               "launches_ok": run.launches == run.launches_expected,
               "ms_per_step": 1e3 * float(np.mean(run.samples_s)),
               "loss_rel_err": check["loss_rel_err"],
@@ -1502,7 +1551,7 @@ def main() -> None:
     ap.add_argument("--arms", default=",".join(TILED_ARMS),
                     help=f"with --tiled, the arms to run, of {','.join(TILED_ARMS)}")
     ap.add_argument("--train-check", type=int, default=0, metavar="N",
-                    help="the flagship step cell's check, N runs in this process")
+                    help="both flagship step cells' checks, N runs each in this process")
     ap.add_argument("--windows", metavar="DIR",
                     help="the host-bound cells at 100 and 400 timed units, logs under DIR")
     ap.add_argument("--control-reads", nargs=2, metavar=("NAME", "N"),
@@ -1583,6 +1632,7 @@ def main() -> None:
     elif args.train_scaling:
         train_scaling(dev, card)
     elif args.sweep:
+        bwd_sweep(dev, gen)
         sweep(dev, gen)
     else:
         cs.phase_kernel_times(dev, gen)

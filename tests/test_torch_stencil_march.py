@@ -1,5 +1,6 @@
-"""The row march behind the forward and tile-halo stencil kernels
-(``csrc/stencil_march.cuh``), on the CPU.
+"""The row marches behind the stencil kernels (``csrc/stencil_march.cuh``
+for the forward and tile-halo kernels, ``csrc/stencil_bwd.cu`` for the
+backward), on the CPU.
 
 A block of the march owns a strip of rows of one plane and reads only its
 own rows, the x row above and the (x, ux, uy) rows below.  So the strips,
@@ -10,6 +11,14 @@ cuts a stack into those strips and column chunks, must cover every row of
 every plane and every column once, never let a strip cross a plane, and
 give the small tile stacks enough blocks to fill an H100.  The kernel
 itself is held against the plain twins on the card by ``chip_smoke.py``.
+
+The backward march reads, for a strip of rows ``r0 .. r1 - 1``, x and gq on
+rows ``r0 - 1 .. r1`` and the duals and cotangents on rows ``r0 .. r1``
+(one row of vb below the strip), circular in H.  Strips computed from those
+rows alone must rebuild ``_bwd_plain``'s xbar, uxbar and uybar bit for bit;
+and ``bwd_march_geometry`` must cover every row and column once, keep each
+256-column segment of the tau table in one chunk, and keep every stack the
+operand checks let through inside the grid.
 """
 
 import os
@@ -19,16 +28,20 @@ import numpy as np
 import pytest
 import torch
 
-from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES
+from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES, prox_vjp
 from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
+    _BWD_SEGMENT,
     _GRID_Y_MAX,
+    _INT32_MAX,
     _MARCH_ROWS,
     _MARCH_ROWS_FWD_FP32,
     _MARCH_VEC,
+    _bwd_plain,
     _halo_plain,
     _stencil_plain,
     _tau_operand,
     _vec_ok,
+    bwd_march_geometry,
     march_geometry,
 )
 
@@ -230,3 +243,110 @@ def test_tau_goes_to_the_kernel_without_a_copy():
     v = torch.arange(12, dtype=torch.float32)[::3]
     got, stride = _tau_operand(v)
     assert stride == 3 and got.data_ptr() == v.data_ptr()
+
+
+def _bwd_strip(x, ux, uy, tau, gq, gux, guy, mode, r0, r1):
+    """Rows ``r0 .. r1 - 1`` of the backward's (xbar, uxbar, uybar), from
+    only the rows the march reads for that strip: x and gq on rows ``r0 - 1
+    .. r1``, the duals and cotangents on rows ``r0 .. r1`` (circular in H),
+    with vb on rows ``r0 .. r1``; ``_bwd_plain``'s expressions."""
+    h = x.shape[1]
+    f = x.dtype
+
+    def rows(a, lo, hi):
+        return a[:, [r % h for r in range(lo, hi)]].to(f)
+
+    t = tau if tau.ndim == 0 else tau[:, None, None]
+    xs, gs = rows(x, r0 - 1, r1 + 1), rows(gq, r0 - 1, r1 + 1)
+    xr, gr = xs[:, 1:], gs[:, 1:]
+    vx = (xr - torch.roll(xr, 1, dims=-1)) + rows(ux, r0, r1 + 1)
+    vy = (xr - xs[:, :-1]) + rows(uy, r0, r1 + 1)
+    wbx, wby = gr - torch.roll(gr, 1, dims=-1), gr - gs[:, :-1]
+    gx, gy = rows(gux, r0, r1 + 1), rows(guy, r0, r1 + 1)
+    pvx, pvy, _ = prox_vjp(mode, vx, vy, t, 2.0 * wbx - gx, 2.0 * wby - gy)
+    vbx = gx - wbx + pvx
+    vby = gy - wby + pvy
+    top = vbx[:, :-1]
+    xbar = (top - torch.roll(top, -1, dims=-1)) + (vby[:, :-1] - vby[:, 1:])
+    return xbar, top.to(ux.dtype), vby[:, :-1].to(ux.dtype)
+
+
+@pytest.mark.parametrize("dual", DUALS, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [1, 3, 16])
+@pytest.mark.parametrize("shape", [(3, 37, 101), (2, 1, 64), (30, 112, 112), (6, 8, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bwd_strips_rebuild_the_plain_backward(rng, shape, rows, dual):
+    """Strips of the backward, each from only the rows its march reads (x
+    and gq one row above, vb one row below), equal ``_bwd_plain``'s xbar,
+    uxbar and uybar bit for bit, in every mode and for either tau."""
+    x, ux, uy = _stack(rng, shape, dual)
+    gq, gux, guy = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dual)
+                    for _ in range(3))
+    h = shape[1]
+    for tau in _taus(rng, shape[0]):
+        for mode in MODES:
+            args = (x, ux, uy, tau, gq, gux, guy, mode)
+            want = _bwd_plain(*args)[:3]
+            strips = [_bwd_strip(*args, r0, min(r0 + rows, h)) for r0 in range(0, h, rows)]
+            for k, w in enumerate(want):
+                got = torch.cat([s[k] for s in strips], dim=1)
+                assert got.dtype == w.dtype and torch.equal(got, w), (mode, tau.ndim, k)
+
+
+def _bwd_card_stacks():
+    return sorted(set(chip_smoke.BWD_SHAPES) | set(chip_smoke.MISALIGNED_SHAPES)
+                  | set(chip_smoke.FLAGSHIP_STACKS) | {(2, 24, 300), (1, 4, 130)})
+
+
+@pytest.mark.parametrize("cols,max_warps", [(None, None), (1, 8), (4, 2), (4, 8)])
+@pytest.mark.parametrize("rows", [1, 2, 16])
+@pytest.mark.parametrize("shape", _bwd_card_stacks(), ids=lambda s: "x".join(map(str, s)))
+def test_bwd_march_geometry_covers_each_row_and_column_once(shape, rows, cols, max_warps):
+    """Each block's strip (blockIdx.x) lies in one plane, and the strips
+    cover every row of every plane once; the threads' columns cover W once,
+    and every thread of a chunk lies in the chunk's 256-column segment of
+    the tau table (a chunk narrower than a segment only where it holds the
+    whole row); one column a thread by default only where a block holds
+    the whole row; the grid, its blocks and their shared memory fit the
+    launch limits, with at least a block for each SM of an H100 wherever
+    the stack has that many strip rows."""
+    n, h, w = shape
+    g = bwd_march_geometry(n, h, w, rows, max_warps, cols)
+    assert g.cols == (cols or (1 if w <= 1024 else 4))
+    chunk = 32 * g.chunk_warps
+    chunks = g.threads // chunk
+    assert chunk * g.cols == _BWD_SEGMENT or (chunk * g.cols >= w and w <= _BWD_SEGMENT)
+    assert 1 <= g.rows <= min(rows, h) and g.strips == -(-h // g.rows)
+    assert n * g.strips <= _INT32_MAX and g.col_blocks <= _GRID_Y_MAX
+    assert g.threads % chunk == 0 and g.threads <= (1024 if g.cols == 1 else 256)
+    assert g.col_blocks * chunks == -(-w // _BWD_SEGMENT)
+    if cols is None and g.cols == 1:
+        assert g.col_blocks == 1
+    assert (2 * g.threads // 32 + chunks * g.rows * 8) * 4 <= 48 * 1024
+    covered = np.zeros((n, h), dtype=np.int64)
+    for y in range(n * g.strips):
+        plane, r0 = y // g.strips, (y % g.strips) * g.rows
+        assert r0 < h
+        covered[plane, r0:min(r0 + g.rows, h)] += 1
+    assert (covered == 1).all()
+    cols_seen = np.zeros(w, dtype=np.int64)
+    for t in range(g.col_blocks * g.threads):
+        c = t * g.cols
+        if c < w:
+            assert t // chunk == c // _BWD_SEGMENT
+        cols_seen[c:c + min(g.cols, max(w - c, 0))] += 1
+    assert (cols_seen == 1).all()
+    blocks = g.col_blocks * n * g.strips
+    assert blocks >= min(H100_SMS, g.col_blocks * n * h, g.col_blocks * n * -(-h // rows))
+
+
+def test_bwd_march_geometry_keeps_a_huge_stack_in_the_grid():
+    """Planes and strips share the grid's first axis, so a stack with more
+    planes than the forward's grid takes (up to the operand checks' 2^31 - 1
+    rows) still fits; a row of more than 65535 blocks is refused."""
+    for shape in [(40000, 64, 64), (_GRID_Y_MAX + 1, 1, 64), (_INT32_MAX, 1, 4),
+                  (1, _INT32_MAX, 4)]:
+        g = bwd_march_geometry(*shape)
+        assert shape[0] * g.strips <= _INT32_MAX and g.rows * g.strips >= shape[1]
+    with pytest.raises(ValueError, match="grid"):
+        bwd_march_geometry(1, 1, (_GRID_Y_MAX + 1) * _BWD_SEGMENT, max_warps=2)

@@ -31,6 +31,7 @@ from admm_deconv_tpu_torch.ops.kernels.prox_math import MODES, prox_vjp
 from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
     _bwd_plain,
     _stencil_plain,
+    _taub_partials_plain,
     fused_admm_stencil,
     fused_admm_stencil_bwd,
     fused_admm_stencil_mixed,
@@ -63,15 +64,20 @@ def _bf16_ulp(got, want):
     assert np.all(np.abs(got - want) <= ulp), float(np.max(np.abs(got - want) - ulp))
 
 
-def _taub_scale(x, ux, uy, tau, gq, gux, guy, mode):
-    """Per-plane sum of |tau terms|, the scale of the tau tolerance."""
+def _taub_terms(x, ux, uy, tau, gq, gux, guy, mode):
+    """The per-pixel tau terms, as ``_bwd_plain`` computes them."""
     t = tau if tau.ndim == 0 else tau[:, None, None]
     dxx = x - torch.roll(x, 1, -1)
     dxy = x - torch.roll(x, 1, -2)
     wbx = gq - torch.roll(gq, 1, -1)
     wby = gq - torch.roll(gq, 1, -2)
-    _, _, terms = prox_vjp(mode, dxx + ux, dxy + uy, t, 2 * wbx - gux, 2 * wby - guy)
-    return terms.abs().sum(dim=(-2, -1)).numpy()
+    _, _, terms = prox_vjp(mode, dxx + ux, dxy + uy, t, 2.0 * wbx - gux, 2.0 * wby - guy)
+    return terms
+
+
+def _taub_scale(*args):
+    """Per-plane sum of |tau terms|, the scale of the tau tolerance."""
+    return _taub_terms(*args).abs().sum(dim=(-2, -1)).numpy()
 
 
 @pytest.fixture(scope="module")
@@ -277,3 +283,60 @@ def test_backward_skips_what_nobody_asked_for(data):
                       torch.ones(SHAPE), torch.zeros(SHAPE), "aniso")
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("per_plane", [False, True], ids=["scalar", "vector"])
+@pytest.mark.parametrize("shape", [(3, 37, 101), (30, 112, 112), (2, 24, 300)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_taub_table_sums_to_the_plain_and_jax_taub(shape, mode, per_plane):
+    """The CUDA kernel's table of tau partial sums, emulated in its order by
+    ``_taub_partials_plain``, has one cell per row and 256-column segment
+    (two at a width over 256), and its rows' sums (the kernel path's taub)
+    equal ``_bwd_plain``'s and JAX's ``_bwd_jnp``'s within 1e-5 of the sum
+    of |terms|."""
+    rng = np.random.default_rng(17)
+    names = ("x", "ux", "uy", "gq", "gux", "guy")
+    arrs = {k: rng.standard_normal(shape).astype(np.float32) for k in names}
+    for k in ("ux", "uy"):
+        arrs[k] *= 0.5
+    tau = (rng.uniform(0.1, 0.5, shape[0]).astype(np.float32) if per_plane
+           else np.float32(0.3))
+    t = [_t(arrs[k]) for k in names]
+    args = (*t[:3], _t(tau), *t[3:], mode)
+    terms = _taub_terms(*args)
+    table = _taub_partials_plain(terms)
+    n, h, w = shape
+    assert table.dtype == torch.float32 and tuple(table.shape) == (n, h * -(-w // 256))
+    got = torch.sum(table, dim=1).numpy()
+    bound = 1e-5 * terms.abs().sum(dim=(-2, -1)).numpy() + 1e-30
+    plain = _bwd_plain(*args)[3].numpy()
+    j = [jnp.asarray(arrs[k]) for k in names]
+    jax_taub = np.asarray(_bwd_jnp(*j[:3], jnp.asarray(tau), *j[3:], mode)[3])
+    assert np.all(np.abs(got - plain) <= bound), np.max(np.abs(got - plain) - bound)
+    assert np.all(np.abs(got - jax_taub) <= bound), np.max(np.abs(got - jax_taub) - bound)
+
+
+def test_taub_table_takes_the_kernels_order():
+    """On hand-built terms the table takes the kernel's order and not a
+    plain sum's.  Row 0, segment 0: columns 0 and 16 (1e8, -1e8) meet at the
+    first halving, before column 1's 1 is added, so the cell reads 1 where
+    a sum in column order reads 0.  Segment 1: columns 256 and 384 (two
+    groups 4 apart) meet first over the group sums, beside column 288's 1.
+    Row 1, segment 0, all -0: the group level's +0 gives +0 where halving
+    the -0 terms alone gives -0.  Segment 1: one 2.5."""
+    terms = torch.zeros(1, 2, 512)
+    terms[0, 0, [0, 1, 16]] = torch.tensor([1e8, 1.0, -1e8])
+    terms[0, 0, [256, 288, 384]] = torch.tensor([1e8, 1.0, -1e8])
+    terms[0, 1, :256] = -0.0
+    terms[0, 1, 511] = 2.5
+    table = _taub_partials_plain(terms)
+    assert torch.equal(table, torch.tensor([[1.0, 1.0, 0.0, 2.5]]))
+    assert not bool(torch.signbit(table[0, 2]))
+    in_column_order = [float(np.cumsum(seg.numpy(), dtype=np.float32)[-1])
+                       for seg in terms.reshape(4, 256)]
+    assert in_column_order[:2] == [0.0, 0.0]
+    halved = terms[0, 1, :256]
+    while halved.numel() > 1:
+        halved = halved[: halved.numel() // 2] + halved[halved.numel() // 2:]
+    assert bool(torch.signbit(halved[0]))
