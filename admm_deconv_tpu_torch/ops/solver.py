@@ -18,7 +18,9 @@ The default loop carries ``(q, u)`` only (the *q-carry* form): neither ``z``
 nor ``x`` is stored between iterations, and the output image is one extra
 spectral solve after the loop.  Its stencil pass is the hand-written CUDA
 kernel on a CUDA tensor (``ops/kernels/stencil_kernels.py``), and its
-gradient the hand-written backward kernel.  The
+gradient the hand-written backward kernel; the x-update's complex
+right-hand side is one hand-written pass (``ops/kernels/spectral_kernels.py``)
+wherever autograd records no graph.  The
 reference-shaped loop over the full state ``(x, z, u)`` serves diagnostics,
 warm-start state requests and over-relaxation with state output; its
 prox + dual step is the hand-written prox-dual kernel
@@ -47,6 +49,7 @@ from admm_deconv_tpu_torch.ops import prox as prox_lib
 from admm_deconv_tpu_torch.ops.diff import grad2d, grad2d_adjoint
 from admm_deconv_tpu_torch.ops.fft import laplacian_spectrum, psf_to_otf
 from admm_deconv_tpu_torch.ops.kernels.prox_kernels import fused_prox_dual
+from admm_deconv_tpu_torch.ops.kernels.spectral_kernels import spectral_rhs
 from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
     fused_admm_stencil,
     fused_admm_stencil_mixed,
@@ -224,7 +227,11 @@ def _prepare(y, psf, lam, rho):
         psf = torch.as_tensor(psf, dtype=dtype, device=device)
         if psf.ndim != 2:
             psf = psf.reshape(psf.shape[0], psf.shape[1])
-        otf = psf_to_otf(psf, (h, w))
+        # cuFFT returns a 2-D rfft2 with its rows fastest; the spectra built
+        # from it (b_f, and C through denom_h) are read by the complex-rhs
+        # pass as flat (N, H, Wf) arrays, so they take the standard layout
+        # here, once a solve.  The values are the same in either layout.
+        otf = psf_to_otf(psf, (h, w)).contiguous()
         denom_h = torch.abs(otf) ** 2
         b_f = torch.conj(otf) * y_hat
     return y_f, b_f, denom_h, lap, lam_f, rho_f, (b, h, w, c)
@@ -240,9 +247,18 @@ def _solve_spectral(b_f, c_spec, rho, q, h, w):
     """Closed-form normal-equation solve ``irfft2(c_spec * (B + rho * rfft2(q)))``.
 
     A narrow (bf16) ``q`` is cast up first: cuFFT and pocketfft take no bf16.
+    Where autograd records no graph, the complex right-hand side is one pass
+    (:func:`spectral_rhs`, written into the fresh ``rfft2(q)``); a solve that
+    records one, or runs in another precision than complex64, keeps the
+    composition, whose values the pass equals.
     """
     q = q.to(c_spec.dtype)
-    return torch.fft.irfft2(c_spec * (b_f + rho * torch.fft.rfft2(q)), s=(h, w))
+    f = torch.fft.rfft2(q)
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (b_f, c_spec, rho, q))
+    if records or f.dtype != torch.complex64 or b_f.dtype != torch.complex64:
+        return torch.fft.irfft2(c_spec * (b_f + rho * f), s=(h, w))
+    return torch.fft.irfft2(spectral_rhs(f, b_f, c_spec, rho), s=(h, w))
 
 
 def _as_dtype(state_dtype) -> torch.dtype | None:

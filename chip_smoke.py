@@ -9,7 +9,7 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. device: a CUDA device must exist (otherwise exit 2 and print no result);
    prints ``nvidia-smi``'s name and power limit of the card;
-2. build: compiles the port's five CUDA kernels from
+2. build: compiles the port's six CUDA kernels from
    ``admm_deconv_tpu_torch/csrc``, one nvcc per source, all at once;
 3. kernels: the forward stencil against its plain torch version on the
    card, bit for bit, every prox mode, fp32 and bf16 duals, scalar and
@@ -28,16 +28,24 @@ Phases, in order; any failure raises and exits non-zero:
    stack a tiled path hands it (a one-row tile and misaligned storage
    included), and over 2 and 4
    tiles of the 1080p batch-4 stack against the circular kernel on the
-   whole, bit for bit;
+   whole, bit for bit; then the x-update's complex right-hand side pass
+   (``spectral_rhs``) against ``_spectral_rhs_plain`` with ``torch.equal``
+   at every half spectrum a solve hands it (``SPECTRAL_SHAPES``), a 0-d
+   and a per-plane rho, a C for all planes and one a plane, and on storage
+   one bin off alignment (F and B both, or one of them);
 4. quality: the 256^2 blocks scenario (3 RGB images, 7x7 motion PSF,
    100 iterations) through ``tv_deconvolve``; PSNR floors, agreement with
    the same solve on the CPU, and one kernel launch per loop iteration;
    then through ``solve_auto`` (both branches) and
    ``composite_tv_deconvolve``, against floors from the JAX package;
 5. solve path: ``tv_deconvolve`` at 1080p RGB batch 4, 50 iterations, fp32
-   and bf16 state, through the kernel (launches counted) and through the
-   plain composition; iterations/s, then the stencil with bf16 duals alone
-   at the 4K frame's 3 planes of 2160x3840, in ms per call;
+   and bf16 state, through the kernels (launches of the stencil and of the
+   complex-rhs pass counted) and through the plain composition;
+   iterations/s; each state's output ``torch.equal`` to the same solve with
+   its complex rhs forced onto the three torch calls; then the stencil
+   with bf16 duals alone at the 4K frame's 3 planes of 2160x3840, in ms
+   per call, and the complex-rhs pass and its composition alone at
+   ``SPECTRAL_TIME_STACKS`` (device ms against the pass's HBM floor);
 6. profile: torch.profiler's device time by kernel for one solve per state
    dtype, and the device's idle share under the profiler;
 7. inference solvers: ``tv_deconvolve_adaptive`` on ``bench_suite.py``'s
@@ -226,13 +234,16 @@ KERNEL_SHAPES = [(2, 24, 128), (1, 256, 2048), (1, 384, 2048), (12, 1080, 1920),
 MISALIGNED_SHAPES = [(3, 37, 101), (2, 24, 128), (6, 8, 32), (2, 1, 64), (3, 2160, 3840),
                      (30, 112, 112)]
 KERNEL_SOURCES = ("stencil_fwd", "stencil_bwd", "prox_dual", "stencil_composite",
-                  "stencil_halo")
+                  "stencil_halo", "spectral_rhs")
 # The three kernels built on the row march (csrc/stencil_march.cuh): their
 # ptxas report is printed in full.
 MARCH_SOURCES = ("stencil_fwd", "stencil_halo", "stencil_bwd")
 CSRC = "admm_deconv_tpu_torch/csrc"
 TPU_KERNELS = "admm_deconv_tpu/ops/pallas/stencil_kernels.py"
 TPU_PROX_KERNELS = "admm_deconv_tpu/ops/pallas/prox_kernels.py"
+# The JAX package's x-update, which the complex-rhs pass computes: jnp that
+# XLA fuses, no Pallas kernel.
+TPU_X_UPDATE = "admm_deconv_tpu/ops/solver.py:386 (_solve_spectral, jnp; no TPU kernel)"
 # The prox-dual kernel's shapes (the last with a scalar tau only: its
 # leading axes are not planes) and the composite kernel's.  The 6-plane
 # stacks are the implicit layer's: the 1080p TV-layer step and the small
@@ -258,6 +269,16 @@ HALO_SHAPES = [(12, 1080, 1920), (3, 2160, 3840), (12, 270, 1920), (3, 540, 3840
                (6, 8, 32), (3, 8, 32),
                (9, 256, 256), (3, 37, 101), (2, 1, 64), (12, 540, 3840)]
 HALO_TILES = (2, 4)
+# The complex-rhs pass's image stacks (its half spectra are (N, H, W//2+1)):
+# every solve's x-update runs where no graph is recorded, at the stacks its
+# stencil or prox-dual pass takes (the denoiser banks in evaluation
+# included); (3, 37, 101) and (2, 1, 64) give an odd plane of bins.
+SPECTRAL_SHAPES = sorted(set(KERNEL_SHAPES) | set(PROX_DUAL_SHAPES) | set(COMPOSITE_SHAPES))
+# Where the pass is timed: the 1080p batch-4 solve's 12 planes (rho 0-d, one
+# C), the 4K frame's 3, and 12 planes with a rho and a C a plane (the
+# adaptive solvers').
+SPECTRAL_TIME_STACKS = (((12, 1080, 1920), False), ((3, 2160, 3840), False),
+                        ((12, 1080, 1920), True))
 # The tile-halo kernel's timed stacks: the 1080p batch-4 solve, the TV
 # layer's 6 planes and the 4K frame at one tile, chip_smoke_multi.py's
 # five tile stacks on 4 cards, and bench_torch's four-card cell's tile.
@@ -429,13 +450,18 @@ def phase_device() -> torch.device:
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
-    from admm_deconv_tpu_torch.ops.kernels import _build, prox_kernels, stencil_kernels
+    from admm_deconv_tpu_torch.ops.kernels import (
+        _build,
+        prox_kernels,
+        spectral_kernels,
+        stencil_kernels,
+    )
 
     t0 = time.perf_counter()
     # One nvcc per source, all started together: each thread waits on its own.
     loaders = (stencil_kernels._kernel_fn, stencil_kernels._bwd_kernel_fn,
                prox_kernels._kernel_fn, stencil_kernels._composite_kernel_fn,
-               stencil_kernels._halo_kernel_fn)
+               stencil_kernels._halo_kernel_fn, spectral_kernels._kernel_fn)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for future in [pool.submit(fn) for fn in loaders]:
             future.result()
@@ -792,9 +818,10 @@ def numpy_pair_metrics() -> None:
 def phase_main_path(dev, gen) -> dict:
     """Time the 1080p batch-4 solve: kernel path (launches counted), plain path."""
     from admm_deconv_tpu_torch import tv_deconvolve
-    from admm_deconv_tpu_torch.ops.kernels.stencil_kernels import (
-        fused_admm_stencil,
-        fused_admm_stencil_mixed,
+    from admm_deconv_tpu_torch.ops import solver
+    from admm_deconv_tpu_torch.ops.kernels.spectral_kernels import (
+        _spectral_rhs_plain,
+        spectral_rhs,
     )
 
     y = torch.rand(BENCH_SHAPE, generator=gen, device=dev)
@@ -814,13 +841,33 @@ def phase_main_path(dev, gen) -> dict:
         return BENCH_ITERS * REPEATS / (time.perf_counter() - t0), out
 
     reset_counts()
+    spectral_rhs.launches = 0
     rate32, x32 = iters_per_s()
     rate16, x16 = iters_per_s(state_dtype="bfloat16")
     counts = read_counts()
-    launches = {"fp32": counts["fused_admm_stencil"], "bf16": counts["fused_admm_stencil_mixed"]}
+    rhs_launches = spectral_rhs.launches
+    launches = {"fp32": counts["fused_admm_stencil"], "bf16": counts["fused_admm_stencil_mixed"],
+                "spectral_rhs": rhs_launches}
     want = (REPEATS + 1) * (BENCH_ITERS - 1)
     check(counts == expect_counts(fused_admm_stencil=want, fused_admm_stencil_mixed=want),
           f"main-path launches {counts}, want {want} forward")
+    # Every x-update of both states' solves: BENCH_ITERS a solve.
+    want_rhs = 2 * (REPEATS + 1) * BENCH_ITERS
+    check(rhs_launches == want_rhs, f"main-path spectral_rhs launches {rhs_launches}, "
+          f"want {want_rhs}")
+    # The same solves with the complex rhs forced onto the three torch calls.
+    saved = solver.spectral_rhs
+    solver.spectral_rhs = _spectral_rhs_plain
+    try:
+        forced = {name: solve(inputs[-1], **kw) for name, kw in
+                  (("fp32", {}), ("bf16", {"state_dtype": "bfloat16"}))}
+    finally:
+        solver.spectral_rhs = saved
+    for name, x in (("fp32", x32), ("bf16", x16)):
+        check(torch.equal(x, forced[name]),
+              f"{name} solve through spectral_rhs differs from the composition's: max "
+              f"{float((x - forced[name]).abs().max()):.3e}")
+    print("[main] both states' outputs through spectral_rhs torch.equal to the composition's")
 
     rate_plain, xp = iters_per_s(prox_impl="xla")
     for name, x in (("fp32", x32), ("bf16", x16), ("plain", xp)):
@@ -833,6 +880,95 @@ def phase_main_path(dev, gen) -> dict:
     check(d32 <= 1e-4, "kernel fp32 solve off the plain solve")
     print(f"[main] launches in the timed solves: {launches}")
     return {"launches": launches, "solve": solve, "y": y}
+
+
+def spectral_operands(dev, gen, shape, per_plane: bool, rho_plane: bool) -> tuple:
+    """F and B (complex64 half spectra of the image stack ``shape``), C
+    (float32, one for all planes or one a plane) and rho (0-d, or ``(N, 1,
+    1)`` as the solvers fold it)."""
+    n, h, w = shape
+    spec = (n, h, w // 2 + 1)
+    f, b = (torch.randn(spec, dtype=torch.complex64, generator=gen, device=dev)
+            for _ in range(2))
+    c = 0.5 + torch.rand(spec if per_plane else spec[1:], generator=gen, device=dev)
+    rho = (RHO * (0.5 + torch.rand(n, generator=gen, device=dev)))[:, None, None] \
+        if rho_plane else torch.tensor(RHO, device=dev)
+    return f, b, c, rho
+
+
+def phase_spectral_kernel(dev, gen) -> float:
+    """The complex-rhs pass against ``_spectral_rhs_plain`` on the same CUDA
+    inputs, ``torch.equal`` (the pass rounds after every operation in the
+    composition's order): every ``SPECTRAL_SHAPES`` stack, 0-d and
+    per-plane rho, one C or a C a plane; and on storage one bin off
+    alignment (F and B both: a head bin, then pairs; one of them: bin by
+    bin).  Returns the largest |pass - plain| (0.0 when all are equal)."""
+    from admm_deconv_tpu_torch.ops.kernels.spectral_kernels import (
+        _spectral_rhs_plain,
+        spectral_rhs,
+    )
+
+    print("[spectral] tolerance: torch.equal with the composition C * (B + rho * F)")
+    worst, cases = 0.0, 0
+    layouts = {"aligned": (False, False)}
+    for shape in SPECTRAL_SHAPES:
+        for per_plane in (False, True):
+            for rho_plane in (False, True):
+                f, b, c, rho = spectral_operands(dev, gen, shape, per_plane, rho_plane)
+                want = _spectral_rhs_plain(f, b, c, rho)
+                kinds = dict(layouts)
+                if shape in MISALIGNED_SHAPES or shape == BENCH_STACK:
+                    kinds |= {"F, B misaligned": (True, True), "F misaligned": (True, False),
+                              "B misaligned": (False, True)}
+                for kind, (mf, mb) in kinds.items():
+                    got_f = misaligned(f) if mf else f.clone()
+                    b_in = misaligned(b) if mb else b
+                    before = spectral_rhs.launches
+                    got = spectral_rhs(got_f, b_in, c, rho)
+                    torch.cuda.synchronize()
+                    what = (f"{shape} C {'a plane' if per_plane else 'shared'} rho "
+                            f"{'a plane' if rho_plane else '0-d'} {kind}")
+                    check(spectral_rhs.launches == before + 1, f"spectral_rhs launched, {what}")
+                    check(got.data_ptr() == got_f.data_ptr(), f"spectral_rhs wrote F, {what}")
+                    err = float((got - want).abs().max())
+                    worst = max(worst, err)
+                    check(torch.equal(got, want), f"spectral_rhs vs plain {what}: {err:.3e}")
+                    cases += 1
+    print(f"[spectral] {cases} cases torch.equal to the composition "
+          f"(max |pass - plain| {worst:.3e})")
+    return worst
+
+
+def phase_spectral_times(dev, gen) -> dict:
+    """The complex-rhs pass and its composition (three torch calls) at
+    ``SPECTRAL_TIME_STACKS``: ms per call by CUDA events in turns
+    (composition, pass, pass, composition), device ms of each (CUDA graph,
+    L2 evicted), and the pass's HBM floor: F and B read once, F written
+    once (24 B a bin), C and rho read once; 6 operations a bin."""
+    from admm_deconv_tpu_torch.ops.kernels.spectral_kernels import (
+        _spectral_rhs_plain,
+        spectral_rhs,
+    )
+    from bench_torch.work import least_ms
+
+    times = {}
+    for shape, per_plane in SPECTRAL_TIME_STACKS:
+        f, b, c, rho = spectral_operands(dev, gen, shape, per_plane, per_plane)
+        bins = float(f.numel())
+        least = least_ms({"bytes": 24 * bins + 4 * (c.numel() + rho.numel()),
+                          "flops": 6 * bins})
+        kernel = lambda f=f, b=b, c=c, rho=rho: spectral_rhs(f, b, c, rho)  # noqa: E731
+        plain = lambda f=f, b=b, c=c, rho=rho: _spectral_rhs_plain(f, b, c, rho)  # noqa: E731
+        p1, k1, k2, p2 = (cuda_ms(fn, 20) for fn in (plain, kernel, kernel, plain))
+        key = f"{tuple(f.shape)} {'a rho and a C a plane' if per_plane else 'rho 0-d'}"
+        t = times[key] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                          "device_ms": device_ms(kernel, 20),
+                          "plain_device_ms": device_ms(plain, 20), **least}
+        print(f"[spectral] {key}: pass {k1:.4f}/{k2:.4f} ms per call, device "
+              f"{t['device_ms']:.4f} ms ({t['bound_ms'] / t['device_ms']:.1%} of the "
+              f"{t['bound_ms']:.4f} ms HBM floor); composition {p1:.4f}/{p2:.4f} ms per call, "
+              f"device {t['plain_device_ms']:.4f} ms")
+    return times
 
 
 def phase_stencil_times(dev, gen, shape=None, duals=("fp32", "bf16")) -> dict:
@@ -3324,7 +3460,7 @@ def phase_bench(dev) -> dict:
 
     one_card = [c for c in cells.RUNS if cells.CHIPS[c] == 1]
     stacks = cells.plane_stacks()
-    check(all(stacks[c] in KERNEL_SHAPES for c in one_card)
+    check(all(stacks[c] in KERNEL_SHAPES and stacks[c] in SPECTRAL_SHAPES for c in one_card)
           and stacks[cells.TILED] in HALO_SHAPES
           and all(stacks[c] in BWD_SHAPES for c, k in cells.KERNELS.items()
                   if "stencil_bwd" in k)
@@ -3435,10 +3571,12 @@ def main() -> None:
     worst_prox = phase_prox_dual_kernel(dev, gen)
     worst_composite = phase_composite_kernel(dev, gen)
     worst_halo = phase_halo_kernel(dev, gen)
+    worst_spectral = phase_spectral_kernel(dev, gen)
     phase_quality(dev)
     phase_quality_solvers(dev)
     solve_path = phase_main_path(dev, gen)
     frame_times = phase_stencil_times(dev, gen, FRAME_STACK, ("bf16",))
+    spectral_times = phase_spectral_times(dev, gen)
     phase_profile(solve_path)
     adaptive = phase_adaptive(dev)
     auto = phase_solve_auto(dev)
@@ -3619,6 +3757,21 @@ def main() -> None:
     by_kernel["fused_admm_stencil_halo"]["device_ms_by_stack"] = {
         str(shape): [times[f"halo_{d} {shape}"]["device_ms"] for d in ("fp32", "bf16")]
         for shape in HALO_TIME_SHAPES[1:]}
+    # The complex-rhs pass: its launches on the main path (the 1080p batch-4
+    # solves, both states), its times at the solve's 12 planes, and at the
+    # other timed stacks.
+    rhs_key, *rhs_more = spectral_times
+    rhs = spectral_times[rhs_key]
+    check(solve_path["launches"]["spectral_rhs"] > 0, "spectral_rhs was not launched on the "
+          "main path")
+    record["kernels"].append({
+        "name": "spectral_rhs", "counter": "spectral_rhs.launches", "route": "cuda",
+        "source": f"{CSRC}/spectral_rhs.cu", "replaces": TPU_X_UPDATE,
+        "launches": solve_path["launches"]["spectral_rhs"], "max_abs_err": worst_spectral,
+        "ms": rhs["ms"], "device_ms": rhs["device_ms"], "plain_ms": rhs["plain_ms"],
+        "plain_device_ms": rhs["plain_device_ms"], "bound_ms": rhs["bound_ms"],
+        "bound_by": rhs["bound_by"], "library_ms": None, "stack": rhs_key,
+        "by_stack": {key: spectral_times[key] for key in rhs_more}})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -357,8 +357,10 @@ def mesh_shapes(ctx: Ctx, mesh) -> list[str]:
 def kernel_stacks(size: dict, world: int) -> dict[str, set]:
     """The (planes, H, W) stacks a run at ``size`` on ``world`` ranks hands
     each kernel: "fwd" Q2-1 (fp32 and bf16 duals), "bwd" Q2-2, "prox_dual"
-    Q2-5, "composite" Q2-3, "halo" Q2-4.  ``chip_smoke.py`` holds each kernel
-    against its plain twin at its stacks."""
+    Q2-5, "composite" Q2-3, "halo" Q2-4, "spectral" the x-update's complex-rhs
+    pass (every one-card solve's stacks: the tiled path keeps its own
+    x-update).  ``chip_smoke.py`` holds each kernel against its plain twin
+    at its stacks."""
     from admm_deconv_tpu_torch.models.zoo import DenoiserBank
     from admm_deconv_tpu_torch.train import load_config
 
@@ -405,6 +407,7 @@ def kernel_stacks(size: dict, world: int) -> dict[str, set]:
     for b in (PER_CARD_BATCH, PER_CARD_BATCH * world):
         out["fwd"].add(planes(branches * b, *crop))
         out["bwd"].add(planes(branches * b, *crop))
+    out["spectral"] = out["fwd"] | out["prox_dual"] | out["composite"]
     return out
 
 
@@ -412,7 +415,8 @@ def unchecked_stacks(size: dict, world: int) -> dict[str, list]:
     """The stacks of :func:`kernel_stacks` that ``chip_smoke.py`` does not
     hold against a kernel's plain twin, by kernel."""
     checked = {"fwd": cs.KERNEL_SHAPES, "bwd": cs.BWD_SHAPES, "prox_dual": cs.PROX_DUAL_SHAPES,
-               "composite": cs.COMPOSITE_SHAPES, "halo": cs.HALO_SHAPES}
+               "composite": cs.COMPOSITE_SHAPES, "halo": cs.HALO_SHAPES,
+               "spectral": cs.SPECTRAL_SHAPES}
     return {k: sorted(v - set(checked[k])) for k, v in kernel_stacks(size, world).items()
             if v - set(checked[k])}
 

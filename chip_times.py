@@ -22,6 +22,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_times.py --conv-passes SETTINGS  # each convolution's passes: ms, error
     python3 chip_times.py --step-cells SETTINGS [--rounds N]  # both step cells by setting
     python3 chip_times.py --trainer-phases  # chip_smoke.py's trainer phases alone: ms/step
+    python3 chip_times.py --rhs  # the x-update's complex rhs: by kernel, and the pass alone
 
 The first form prints, for each of the port's five kernels at the stacks
 ``chip_smoke.py`` times them, the ms per call from the host (``cuda_ms``)
@@ -204,6 +205,16 @@ without one, ms per step of each) alone, and prints their ms/step on one
 line.  Run from the root of another checkout (``cd DIR && python3
 /path/to/chip_times.py --trainer-phases``) it times that checkout's
 ``chip_smoke.py`` and package, so a parent and a change compare in one call.
+
+``--rhs`` reads the x-update's complex right-hand side ``C (B + rho
+rfft2(q))``, one JSON line a row: for each of ``RHS_CELLS``, the cell run
+by its own ``cells.run_*`` with one timed unit, and its traced units'
+device ms a unit by the cell's layer, the aten ops open at each launch
+(innermost three) and the kernel's name; then, where the tree has the
+hand-written pass, ``chip_smoke.phase_spectral_times`` (the pass and the
+composition's three torch calls alone, against the pass's HBM floor).
+Run from a tree without the pass (``cd DIR && python3
+/path/to/chip_times.py --rhs``), it reads the cells alone.
 """
 
 from __future__ import annotations
@@ -277,6 +288,8 @@ HUNT_SETTINGS = ("cudnn", "cudnn deterministic", "native convolutions", "cudnn n
 STATES_STEPS, STATES_EVERY, STATES_ABOVE = 400, 5, (1e-3, 5e-3)
 # --step-cells: the two step cells, timed under each cuDNN setting in turns.
 STEP_CELLS = ("flagship_train_step", "flagship_train_step_b8")
+# --rhs: the cells whose elementwise_ms the x-update's complex rhs fills.
+RHS_CELLS = ("solve_1080p_b4", "composite_1080p")
 
 
 def profiler_ms(fn, calls: int, kernel: str) -> float:
@@ -328,6 +341,38 @@ def profiler_times(dev, gen) -> None:
             ms = profiler_ms(lambda: fused_admm_stencil_halo(x, ux, uy, *halos, tau), 20,
                              "stencil_halo_kernel")
             print(f"{line} halo {ms:.4f} ms ({floor / ms:.1%} of the {floor:.4f} ms floor)")
+
+
+def _aten_ops(stack: list[str]) -> str:
+    """The innermost three aten ops open at a launch, outermost first."""
+    return " > ".join([s for s in stack if s.startswith("aten::")][-3:]) or "(no aten op)"
+
+
+def rhs_rows(dev, gen, card: dict) -> None:
+    """The ``--rhs`` rows (module docstring)."""
+    from bench_torch import cells
+
+    def emit(row: dict) -> None:
+        print(json.dumps(card | row), flush=True)
+
+    for cell in RHS_CELLS:
+        layer_of = cells.classify_solve if cell == "solve_1080p_b4" else cells.classify_composite
+        run = cells.RUNS[cell](dev, cells.DEFAULT_SEEDS[cell], 1, "full", classify=(
+            lambda name, stack, ranges, layer_of=layer_of:
+            json.dumps([layer_of(name, stack, ranges), _aten_ops(stack), name[:200]])))
+        keyed = run.breakdown.pop("layers_ms") or {}  # {} on the CPU
+        rows = sorted(([*json.loads(k), ms] for k, ms in keyed.items()), key=lambda r: -r[3])
+        layers = {}
+        for layer, _, _, ms in rows:
+            layers[layer] = layers.get(layer, 0.0) + ms
+        emit({"row": "rhs breakdown", "cell": cell, "layers_ms": layers,
+              "busy_ms": run.breakdown.get("busy_ms"), "wall_ms": run.breakdown.get("wall_ms"),
+              "check_ok": run.checks["solve"]["ok"]})
+        for layer, ops, name, ms in rows:
+            emit({"row": "rhs kernel", "cell": cell, "layer": layer, "ops": ops, "kernel": name,
+                  "ms_a_unit": ms})
+    if hasattr(cs, "phase_spectral_times"):  # a tree with the pass
+        cs.phase_spectral_times(dev, gen)
 
 
 def tiled_rows(dev) -> None:
@@ -1579,6 +1624,8 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=2, help="with --step-cells, the rounds")
     ap.add_argument("--trainer-phases", action="store_true",
                     help="chip_smoke.py's phase_trainer and phase_data_parallel alone: ms/step")
+    ap.add_argument("--rhs", action="store_true",
+                    help="the x-update's complex rhs: the solve cells by kernel, the pass alone")
     args = ap.parse_args()
     if args.tiled:  # before this process makes a CUDA context
         arms = args.arms.split(",")
@@ -1592,6 +1639,8 @@ def main() -> None:
     card = dict(zip(("card", "power_limit"), (f.strip() for f in cs.nvidia_smi().split(","))))
     if args.trainer_phases:
         trainer_phase_rows(dev, card)
+    elif args.rhs:
+        rhs_rows(dev, gen, card)
     elif args.route_hunt:
         route_hunt_rows(card, dev, args.route_hunt.split(","),
                         args.steps or HUNT_STEPS)
